@@ -1,0 +1,255 @@
+"""The relight pass: CUDA kernel `csrc/relight.cu` and its plain twin.
+
+Replaces the TPU kernel `aic_tpu/light/pallas_relight.py:338
+_kernel_factory` (launched by `_kernel_pass_planes`, driven by
+`converge_pallas`): one Jacobi relight pass over every cube. For each
+chart ray and each of its steps it fetches the entered cube's face row
+(colour, opacity, flags, emission), carries the ray's alpha and weight,
+and reads the stored light behind a struck face or inside a cube the ray
+passes through; a ray ends at the chart's end, outside the volume, at an
+opaque face or when its alpha reaches 0, and then picks up the sky. The
+pass returns incoming RGB and total ray weight per cube; `dense._finish`
+packs them. Semantics are `aic_tpu` `dense._run_pairs` (dense.py:210-418).
+
+On the H100 the kernel is one thread per cube, walking the whole pair
+table ray by ray. What bounds it is latency of the dependent gathers
+along each ray (contents → face row → light), not bandwidth: the tables
+(contents, light, face rows) are a few MB and stay in L2, and every
+thread of a warp reads the same pair entry. The design keeps all per-ray
+state in registers, cuts a ray at its end instead of masking the rest of
+the table (the TPU kernel's dead-ray gate), skips cubes whose result
+`_finish` overwrites (opaque origins), and accumulates in f32 without
+atomics. The TPU kernel's octant-mirror and plane packing are layout
+tricks for its vector unit and are not carried over; f32 replaces bf16.
+The kernel always runs the full pass (no light-only variant).
+
+`relight_pass` dispatches on the device of its tensors: a CPU tensor takes
+the plain version, a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..math import faces
+
+#: Launches of the CUDA kernel by this process (the plain version does
+#: not count).
+LAUNCHES = 0
+
+
+@dataclass(frozen=True)
+class PairTables:
+    """The chart's (ray, step) pair tables on the device, in two layouts:
+    flat with per-ray ranges for the kernel, and per (ray, step) for the
+    plain version."""
+
+    off: torch.Tensor  # i32[N,3] cube offset entered at the pair
+    face: torch.Tensor  # i32[N] entered face
+    is_end: torch.Tensor  # u8[N] ray ends here (sky)
+    ray_start: torch.Tensor  # i32[R+1] first pair of each ray
+    cosines: torch.Tensor  # f32[R,6]
+    sky_ray: torch.Tensor  # f32[R,3] sky light seen along each ray
+    sky_faces: torch.Tensor  # f32[6,3] BlockSky per-face light
+    step_off: torch.Tensor  # i32[R,S,3]
+    step_face: torch.Tensor  # i32[R,S]
+    step_end: torch.Tensor  # bool[R,S]
+
+    @staticmethod
+    def from_numpy(ch: dict, sky_faces: torch.Tensor) -> "PairTables":
+        dev = sky_faces.device
+        ray_id = ch["ray_id"]
+        n_rays = ch["cosines"].shape[0]
+        counts = np.bincount(ray_id, minlength=n_rays)
+        ray_start = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+        steps = int(counts.max())
+        pos = np.arange(len(ray_id)) - ray_start[ray_id]
+        step_off = np.zeros((n_rays, steps, 3), np.int32)
+        step_face = np.zeros((n_rays, steps), np.int32)
+        step_end = np.ones((n_rays, steps), np.bool_)
+        step_off[ray_id, pos] = ch["off"]
+        step_face[ray_id, pos] = ch["face"]
+        step_end[ray_id, pos] = ch["is_end"]
+        cosines = torch.as_tensor(ch["cosines"], device=dev)
+        sky_ray = (cosines @ sky_faces) / cosines.sum(-1, keepdim=True)
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        return PairTables(
+            off=t(ch["off"]).contiguous(),
+            face=t(ch["face"]),
+            is_end=t(ch["is_end"].astype(np.uint8)),
+            ray_start=t(ray_start),
+            cosines=cosines,
+            sky_ray=sky_ray.contiguous(),
+            sky_faces=sky_faces.contiguous(),
+            step_off=t(step_off),
+            step_face=t(step_face),
+            step_end=t(step_end),
+        )
+
+
+def _ring_padded_light(light_rgb: torch.Tensor, sky_faces: torch.Tensor) -> torch.Tensor:
+    """Decoded light padded by one cube: the face slabs of the padding
+    carry the sky's face light, edges and corners are 0 (sky.rs:96
+    `light_outside`). f32[X+2,Y+2,Z+2,3]."""
+    X, Y, Z = light_rgb.shape[:3]
+    lp = torch.zeros((X + 2, Y + 2, Z + 2, 3), dtype=torch.float32, device=light_rgb.device)
+    lp[1:-1, 1:-1, 1:-1] = light_rgb
+    lp[0, 1:-1, 1:-1] = sky_faces[0]
+    lp[-1, 1:-1, 1:-1] = sky_faces[3]
+    lp[1:-1, 0, 1:-1] = sky_faces[1]
+    lp[1:-1, -1, 1:-1] = sky_faces[4]
+    lp[1:-1, 1:-1, 0] = sky_faces[2]
+    lp[1:-1, 1:-1, -1] = sky_faces[5]
+    return lp
+
+
+def relight_pass_plain(contents, light_rgb, face_rows, ctx):
+    """Plain PyTorch pass: (incoming f32[X,Y,Z,3], total f32[X,Y,Z]) over
+    the chart rays, without the root-step term `ctx.incoming0`.
+
+    All live (cube, ray) pairs advance one step at a time; pairs whose ray
+    ended drop out of the lists, so the work follows the rays' lengths."""
+    X, Y, Z = contents.shape
+    dev = contents.device
+    V = X * Y * Z
+    pairs = ctx.pairs
+    lp = _ring_padded_light(light_rgb, pairs.sky_faces).reshape(-1, 3)
+    normals = torch.as_tensor(faces.FACE_NORMALS, dtype=torch.int32, device=dev)
+
+    dw = ctx.dir_weights.reshape(V, 6)
+    cos = pairs.cosines
+    rw_all = dw[:, 0:1] * cos[:, 0]
+    for f in range(1, 6):
+        rw_all = rw_all + dw[:, f : f + 1] * cos[:, f]
+    a0 = ctx.alpha0.reshape(V)
+    live0 = (rw_all > 0.0) & (a0 > 0.0)[:, None] & ~ctx.origin_opaque.reshape(V, 1)
+    c_idx, r_idx = live0.nonzero(as_tuple=True)
+    w = rw_all[c_idx, r_idx]
+    alpha = a0[c_idx]
+    cx = torch.div(c_idx, Y * Z, rounding_mode="floor")
+    cy = torch.div(c_idx, Z, rounding_mode="floor") % Y
+    cz = c_idx % Z
+    flat_contents = contents.reshape(-1)
+
+    incoming = torch.zeros((V, 3), dtype=torch.float32, device=dev)
+    total = torch.zeros(V, dtype=torch.float32, device=dev)
+    for s in range(pairs.step_face.shape[1]):
+        if c_idx.numel() == 0:
+            break
+        off = pairs.step_off[r_idx, s]
+        face = pairs.step_face[r_idx, s]
+        px, py, pz = cx + off[:, 0], cy + off[:, 1], cz + off[:, 2]
+        inside = (px >= 0) & (px < X) & (py >= 0) & (py < Y) & (pz >= 0) & (pz < Z)
+        exits = pairs.step_end[r_idx, s] | ~inside
+        pid = flat_contents[
+            (px.clamp(0, X - 1) * Y + py.clamp(0, Y - 1)) * Z + pz.clamp(0, Z - 1)
+        ].long()
+        row = face_rows[pid * 6 + face]
+        fc = row[:, 0:4]
+        flags = row[:, 4]
+        opaque_f = torch.remainder(flags, 2.0) >= 1.0
+        visible = flags >= 2.0
+        emission = row[:, 5:8]
+        hit_alpha = fc[:, 3].clamp(0.0, 1.0)
+        interacting = ~exits & visible
+
+        def light_at(qx, qy, qz):
+            q = ((qx + 1).clamp(0, X + 1) * (Y + 2) + (qy + 1).clamp(0, Y + 1)) * (
+                Z + 2
+            ) + (qz + 1).clamp(0, Z + 1)
+            return lp[q]
+
+        # Struck-face branch: reflect the light stored behind the face.
+        nrm = normals[face]
+        behind = light_at(px + nrm[:, 0], py + nrm[:, 1], pz + nrm[:, 2])
+        struck = interacting & (hit_alpha > 0.0)
+        light_struck = emission + fc[:, :3].clamp(0.0, 1.0) * behind * hit_alpha[:, None]
+        zero3 = torch.zeros_like(light_struck)
+        contrib = torch.where(struck[:, None], light_struck * (alpha * w)[:, None], zero3)
+        hit_opaque = struck & opaque_f
+        alpha = torch.where(struck & ~hit_opaque, alpha * (1.0 - hit_alpha), alpha)
+
+        # Pass-through branch: pick up the cube's own stored light.
+        through = interacting & (hit_alpha < 1.0) & ~hit_opaque
+        light_through = emission + light_at(px, py, pz) * hit_alpha[:, None]
+        contrib = contrib + torch.where(
+            through[:, None], light_through * (alpha * w)[:, None], zero3
+        )
+        alpha = torch.where(through, alpha * (1.0 - hit_alpha), alpha)
+
+        alpha = torch.where(hit_opaque, torch.zeros_like(alpha), alpha)
+        ends = exits | hit_opaque | (alpha <= 0.0)
+        contrib = contrib + torch.where(
+            ends[:, None], pairs.sky_ray[r_idx] * (alpha * w)[:, None], zero3
+        )
+        incoming.index_add_(0, c_idx, contrib)
+        total.index_add_(0, c_idx, torch.where(ends, w, torch.zeros_like(w)))
+
+        keep = ~ends
+        c_idx, r_idx, w, alpha = c_idx[keep], r_idx[keep], w[keep], alpha[keep]
+        cx, cy, cz = cx[keep], cy[keep], cz[keep]
+    return incoming.reshape(X, Y, Z, 3), total.reshape(X, Y, Z)
+
+
+def _fn():
+    lib = kernels.load_library("relight")
+    fn = lib.aic_relight_pass
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def relight_pass_cuda(contents, light_rgb, face_rows, ctx):
+    """Launch `csrc/relight.cu` on the tensors' card; same contract as
+    `relight_pass_plain`."""
+    global LAUNCHES
+    dev = contents.device
+    X, Y, Z = contents.shape
+    V = X * Y * Z
+    p = ctx.pairs
+    R = p.cosines.shape[0]
+    N = p.face.shape[0]
+    req = kernels.require
+    req(contents, "contents", torch.int32, (X, Y, Z), dev)
+    req(light_rgb, "light_rgb", torch.float32, (X, Y, Z, 3), dev)
+    req(face_rows, "face_rows", torch.float32, (face_rows.shape[0], 8), dev)
+    req(ctx.dir_weights, "dir_weights", torch.float32, (X, Y, Z, 6), dev)
+    req(ctx.alpha0, "alpha0", torch.float32, (X, Y, Z), dev)
+    req(ctx.origin_opaque, "origin_opaque", torch.bool, (X, Y, Z), dev)
+    req(p.sky_faces, "sky_faces", torch.float32, (6, 3), dev)
+    req(p.cosines, "cosines", torch.float32, (R, 6), dev)
+    req(p.sky_ray, "sky_ray", torch.float32, (R, 3), dev)
+    req(p.ray_start, "ray_start", torch.int32, (R + 1,), dev)
+    req(p.off, "pair_off", torch.int32, (N, 3), dev)
+    req(p.face, "pair_face", torch.int32, (N,), dev)
+    req(p.is_end, "pair_end", torch.uint8, (N,), dev)
+    incoming = torch.empty((X, Y, Z, 3), dtype=torch.float32, device=dev)
+    total = torch.empty((X, Y, Z), dtype=torch.float32, device=dev)
+    fn = _fn()
+    ptr = kernels.ptr
+    err = fn(
+        ptr(contents), ptr(light_rgb), ptr(face_rows), ptr(ctx.dir_weights),
+        ptr(ctx.alpha0), ptr(ctx.origin_opaque), ptr(p.sky_faces), ptr(p.cosines),
+        ptr(p.sky_ray), ptr(p.ray_start), ptr(p.off), ptr(p.face), ptr(p.is_end),
+        ptr(incoming), ptr(total),
+        X, Y, Z, R,
+        kernels.stream_ptr(dev),
+    )
+    LAUNCHES += 1
+    kernels.check_launch(err, "relight kernel")
+    return incoming, total
+
+
+def relight_pass(contents, light_rgb, face_rows, ctx):
+    """One relight pass over every cube: the kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if contents.device.type == "cuda":
+        return relight_pass_cuda(contents, light_rgb, face_rows, ctx)
+    if contents.device.type == "cpu":
+        return relight_pass_plain(contents, light_rgb, face_rows, ctx)
+    raise ValueError(f"no relight pass for device {contents.device}")

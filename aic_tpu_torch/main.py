@@ -1,0 +1,93 @@
+"""Command-line frontend of the port (counterpart of `aic_tpu/main.py`).
+
+Builds a template, snapshots it onto a device, relights it to
+convergence with `evaluate_light_dense` and renders one frame to PNG:
+
+    python -m aic_tpu_torch.main --template atrium --graphics record \\
+        --output frame.png --width 1920 --height 1080 --device cuda
+
+`--device cuda` runs the relight and trace through the CUDA kernels,
+`--device cpu` through their plain PyTorch twins. Only the `record`
+graphics mode is ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+
+def default_camera(space, width, height, options):
+    """The JAX frontend's camera: at the spawn point, looking at the
+    centre of the bounds.
+
+    One deviation: where that view is vertical (the atrium's spawn point
+    lies straight below the centre, and `aic_tpu`'s look-at then makes
+    NaN rays), the eye moves to bench.py's headline framing of the
+    atrium, `lower + size·(0.5, 0.75, 0.9)`."""
+    from .raytrace import Camera, Viewport
+
+    cam = Camera(options, Viewport(width, height))
+    lo = np.asarray(space.bounds.lower, float)
+    hi = np.asarray(space.bounds.upper, float)
+    center = (lo + hi) / 2
+    if space.spawn_position is not None:
+        eye = np.asarray(space.spawn_position, float)
+    else:
+        eye = center + (hi - lo) * np.array([0.4, 0.35, 1.1])
+    if np.linalg.norm(np.cross(center - eye, (0.0, 1.0, 0.0))) < 1e-9:
+        eye = lo + (hi - lo) * np.array([0.5, 0.75, 0.9])
+    cam.look_at(eye, center)
+    return cam
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="aic-tpu-torch")
+    p.add_argument("--template", default="cornell-box")
+    p.add_argument("--graphics", default="record", choices=["record"])
+    p.add_argument("--size", type=int, default=None, help="template size")
+    p.add_argument("--width", type=int, default=120)
+    p.add_argument("--height", type=int, default=80)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--output", default="frame.png")
+    p.add_argument("--lighting", default="smoothstep")
+    p.add_argument("--no-relight", action="store_true")
+    p.add_argument("--device", default="cuda", help="torch device: cuda or cpu")
+    args = p.parse_args(argv)
+
+    import torch
+
+    from .content import build_template_space
+    from .light import evaluate_light_dense
+    from .raytrace import GraphicsOptions, render, save_png
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is available")
+    try:
+        space = build_template_space(args.template, seed=args.seed, size=args.size)
+    except KeyError as e:
+        raise SystemExit(str(e))
+    state = space.snapshot(device=device)
+    if not args.no_relight and state.light_enabled:
+        t0 = time.time()
+        state, n = evaluate_light_dense(state)
+        print(f"[light] {n} passes in {time.time() - t0:.1f}s", file=sys.stderr)
+
+    options = GraphicsOptions(lighting_display=args.lighting, fog="none")
+    cam = default_camera(space, args.width, args.height, options)
+    t0 = time.time()
+    r = render(state, cam)
+    print(f"[render] {args.width}x{args.height} in {time.time() - t0:.1f}s", file=sys.stderr)
+    if r.flaws:
+        print(f"[render] flaws: {', '.join(r.flaws)}", file=sys.stderr)
+
+    save_png(r, args.output)
+    print(f"wrote {args.output}", file=sys.stderr)
+
+
+if __name__ == "__main__":
+    main()

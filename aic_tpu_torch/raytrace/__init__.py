@@ -1,0 +1,18 @@
+"""Layer 2a: raytrace rendering (port of `aic_tpu/raytrace`)."""
+
+from .camera import Camera, Viewport, look_at_transform
+from .options import GraphicsOptions
+from .render import Rendering, render, render_hdr, save_png
+from .trace_kernel import trace_rays_kernel
+
+__all__ = [
+    "Camera",
+    "GraphicsOptions",
+    "Rendering",
+    "Viewport",
+    "look_at_transform",
+    "render",
+    "render_hdr",
+    "save_png",
+    "trace_rays_kernel",
+]
