@@ -6,6 +6,14 @@
 // plain PyTorch twin is `relight_pass_plain` in
 // aic_tpu_torch/light/relight_kernel.py.
 //
+// Two variants, as the TPU kernel has (its `dyn` flag): the full pass, and
+// the light-only pass (DYN), which leaves out every term that does not read
+// stored light -- emission, the sky a ray picks up at its end, the sky
+// one-ring outside the bounds, and the total weight. A pass is affine in the
+// stored light, so full(ring only) + light_only(interior) = full(interior +
+// ring): the convergence loop runs the full pass once and the light-only
+// pass per iteration.
+//
 // Bound on the H100: each step of a ray is a chain of dependent loads
 // (contents -> face row -> stored light), so latency, not bandwidth, is
 // the limit; the tables are a few MB and stay in L2. The design keeps the
@@ -31,7 +39,9 @@ struct Light {
 
 // Stored light at a cube, or BlockSky::light_outside (sky.rs:96) for the
 // one-cube ring outside the bounds: the sky's face light where exactly one
-// coordinate is out (by one), 0 elsewhere.
+// coordinate is out (by one), 0 elsewhere. The light-only pass reads 0 on
+// the ring.
+template <bool DYN>
 __device__ __forceinline__ Light light_at(const float* __restrict__ light_rgb,
                                           const float* __restrict__ sky_faces,
                                           int x, int y, int z, int X, int Y,
@@ -41,7 +51,7 @@ __device__ __forceinline__ Light light_at(const float* __restrict__ light_rgb,
     const float* p = light_rgb + 3 * ((x * Y + y) * Z + z);
     return {p[0], p[1], p[2]};
   }
-  if (int(ox) + int(oy) + int(oz) == 1) {
+  if (!DYN && int(ox) + int(oy) + int(oz) == 1) {
     int f = -1;
     if (ox) f = x == -1 ? 0 : (x == X ? 3 : -1);
     if (oy) f = y == -1 ? 1 : (y == Y ? 4 : -1);
@@ -51,6 +61,7 @@ __device__ __forceinline__ Light light_at(const float* __restrict__ light_rgb,
   return {0.f, 0.f, 0.f};
 }
 
+template <bool DYN>
 __global__ void relight_pass_kernel(
     const int32_t* __restrict__ contents, const float* __restrict__ light_rgb,
     const float* __restrict__ face_rows, const float* __restrict__ dir_weights,
@@ -92,21 +103,25 @@ __global__ void relight_pass_kernel(
             const float ha = fminf(fmaxf(row[3], 0.f), 1.f);
             if (ha > 0.f) {  // struck: reflect the light behind the face
               const Light bh =
-                  light_at(light_rgb, sky_faces, px + kNormals[face][0],
+                  light_at<DYN>(light_rgb, sky_faces, px + kNormals[face][0],
                            py + kNormals[face][1], pz + kNormals[face][2], X, Y, Z);
               const float aw = alpha * w;
-              ir = ir + (row[5] + fminf(fmaxf(row[0], 0.f), 1.f) * bh.r * ha) * aw;
-              ig = ig + (row[6] + fminf(fmaxf(row[1], 0.f), 1.f) * bh.g * ha) * aw;
-              ib = ib + (row[7] + fminf(fmaxf(row[2], 0.f), 1.f) * bh.b * ha) * aw;
+              const float er = DYN ? 0.f : row[5], eg = DYN ? 0.f : row[6],
+                          eb = DYN ? 0.f : row[7];
+              ir = ir + (er + fminf(fmaxf(row[0], 0.f), 1.f) * bh.r * ha) * aw;
+              ig = ig + (eg + fminf(fmaxf(row[1], 0.f), 1.f) * bh.g * ha) * aw;
+              ib = ib + (eb + fminf(fmaxf(row[2], 0.f), 1.f) * bh.b * ha) * aw;
               hit_opaque = fmodf(flags, 2.f) >= 1.f;
               if (!hit_opaque) alpha = alpha * (1.f - ha);
             }
             if (ha < 1.f && !hit_opaque) {  // pass through: own stored light
-              const Light own = light_at(light_rgb, sky_faces, px, py, pz, X, Y, Z);
+              const Light own = light_at<DYN>(light_rgb, sky_faces, px, py, pz, X, Y, Z);
               const float aw = alpha * w;
-              ir = ir + (row[5] + own.r * ha) * aw;
-              ig = ig + (row[6] + own.g * ha) * aw;
-              ib = ib + (row[7] + own.b * ha) * aw;
+              const float er = DYN ? 0.f : row[5], eg = DYN ? 0.f : row[6],
+                          eb = DYN ? 0.f : row[7];
+              ir = ir + (er + own.r * ha) * aw;
+              ig = ig + (eg + own.g * ha) * aw;
+              ib = ib + (eb + own.b * ha) * aw;
               alpha = alpha * (1.f - ha);
             }
           }
@@ -114,11 +129,13 @@ __global__ void relight_pass_kernel(
           ends = hit_opaque || alpha <= 0.f;
         }
         if (ends) {  // the ray picks up the sky along its direction
-          const float aw = alpha * w;
-          ir = ir + sky_ray[3 * r] * aw;
-          ig = ig + sky_ray[3 * r + 1] * aw;
-          ib = ib + sky_ray[3 * r + 2] * aw;
-          tw = tw + w;
+          if (!DYN) {
+            const float aw = alpha * w;
+            ir = ir + sky_ray[3 * r] * aw;
+            ig = ig + sky_ray[3 * r + 1] * aw;
+            ib = ib + sky_ray[3 * r + 2] * aw;
+            tw = tw + w;
+          }
           break;
         }
       }
@@ -138,12 +155,13 @@ extern "C" int aic_relight_pass(
     const void* sky_faces, const void* cosines, const void* sky_ray,
     const void* ray_start, const void* pair_off, const void* pair_face,
     const void* pair_end, void* incoming, void* total, int X, int Y, int Z,
-    int R, void* stream) {
+    int R, int dyn, void* stream) {
   const int threads = 128;
   const int n = X * Y * Z;
   const int blocks = (n + threads - 1) / threads;
   if (n > 0) {
-    relight_pass_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+    auto kernel = dyn ? relight_pass_kernel<true> : relight_pass_kernel<false>;
+    kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(contents), static_cast<const float*>(light_rgb),
         static_cast<const float*>(face_rows), static_cast<const float*>(dir_weights),
         static_cast<const float*>(alpha0), static_cast<const bool*>(origin_opaque),

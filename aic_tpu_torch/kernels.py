@@ -46,28 +46,45 @@ def _nvcc() -> str:
     return path
 
 
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(*names: str) -> None:
+    """Compile the named `csrc/<name>.cu` sources that have no library for
+    their current hash yet: one nvcc process per source, all started
+    together."""
+    jobs = []
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((name, out, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, out, tmp, proc, t0 in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu:\n{stdout}\n{stderr}")
+            continue
+        os.replace(tmp, out)
+        BUILD_INFO[name] = (time.perf_counter() - t0, stderr)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build (once per source hash) and load `csrc/<name>.cu`."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        t0 = time.perf_counter()
-        res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True,
-            text=True,
-        )
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{res.stdout}\n{res.stderr}")
-        os.replace(tmp, out)
-        BUILD_INFO[name] = (time.perf_counter() - t0, res.stderr)
-    lib = ctypes.CDLL(str(out))
+    build(name)
+    lib = ctypes.CDLL(str(_target(name)))
     _LIBS[name] = lib
     return lib
 

@@ -9,9 +9,11 @@ driver. Left out: the coarse multigrid seed (measured negative in
 The pass itself is `relight_kernel.relight_pass`: the CUDA kernel for a
 state on the card, its plain PyTorch twin for one on the CPU.
 
-Convergence follows the JAX package per device: on the CPU it is plain
-Jacobi (`aic_tpu` `_converge_xla`), on CUDA it over-relaxes like
-`converge_pallas` (w = 1.3, the stop always judged on the plain pass).
+Convergence follows `converge_pallas`: the light-independent terms come
+from one full pass over ring-only light, and every iteration runs the
+light-only pass. On the CPU the passes are plain Jacobi (`aic_tpu`
+`_converge_xla` on the CPU), on CUDA they over-relax (w = 1.3, the stop
+always judged on the plain pass).
 """
 
 from __future__ import annotations
@@ -198,11 +200,23 @@ def _overrelax(light, new_light, diff: int, w: float):
 def converge(state: SpaceState, ctx: RelightCtx, max_passes: int = 32, overrelax: float = 1.0):
     """Jacobi passes until no cube moves by more than 1 packed step (the
     reference's re-enqueue threshold, updater.rs:340). Returns (new packed
-    light, passes run)."""
+    light, passes run).
+
+    As in `converge_pallas` (pallas_relight.py:827-862): one full pass
+    over light that is zero inside the bounds and the sky on the ring
+    around them gives the emission, sky and ring terms and the total
+    weights once; each iteration adds to them the light-only pass over
+    the stored light (the split is exact by linearity, up to f32
+    summation order)."""
+    rows = state.tables.light_face_rows
+    zero = torch.zeros(tuple(state.contents.shape) + (3,), dtype=torch.float32, device=state.device)
+    static, total_w = relight_pass(state.contents, zero, rows, ctx)
     light = state.light
     passes = 0
     while passes < max_passes:
-        new_light = relight_all_pass(dataclasses.replace(state, light=light), ctx)
+        light_rgb = lightpack.decode_rgb(light).contiguous()
+        inc, _ = relight_pass(state.contents, light_rgb, rows, ctx, dyn=True)
+        new_light = _finish(ctx, inc + static + ctx.incoming0, total_w)
         diff = int(lightpack.difference_priority(light, new_light).max())
         if overrelax != 1.0:
             new_light = _overrelax(light, new_light, diff, overrelax)

@@ -21,7 +21,15 @@ the table (the TPU kernel's dead-ray gate), skips cubes whose result
 `_finish` overwrites (opaque origins), and accumulates in f32 without
 atomics. The TPU kernel's octant-mirror and plane packing are layout
 tricks for its vector unit and are not carried over; f32 replaces bf16.
-The kernel always runs the full pass (no light-only variant).
+
+Both of the TPU kernel's variants are here, as a template flag of the one
+kernel: the full pass, and the light-only pass (`dyn=True`, the TPU
+kernel's `dyn`), which leaves out the terms that read no stored light --
+emission, the sky a ray picks up at its end, the sky one-ring outside the
+bounds and the total weight. A pass is affine in the stored light, so
+the full pass over ring-only light plus the light-only pass over the
+interior light is the full pass (up to f32 summation order);
+`dense.converge` runs the first once and the second per iteration.
 
 `relight_pass` dispatches on the device of its tensors: a CPU tensor takes
 the plain version, a CUDA tensor launches the kernel or raises.
@@ -38,9 +46,10 @@ import torch
 from .. import kernels
 from ..math import faces
 
-#: Launches of the CUDA kernel by this process (the plain version does
-#: not count).
+#: Launches of the CUDA kernel by this process, full and light-only
+#: variants (the plain version does not count).
 LAUNCHES = 0
+LAUNCHES_DYN = 0
 
 
 @dataclass(frozen=True)
@@ -108,39 +117,79 @@ def _ring_padded_light(light_rgb: torch.Tensor, sky_faces: torch.Tensor) -> torc
     return lp
 
 
-def relight_pass_plain(contents, light_rgb, face_rows, ctx):
-    """Plain PyTorch pass: (incoming f32[X,Y,Z,3], total f32[X,Y,Z]) over
-    the chart rays, without the root-step term `ctx.incoming0`.
+#: Most (cube, ray) pairs the plain pass holds at once. The pass is
+#: independent per cube, so it walks the cubes in slabs of at most this
+#: many pairs and its memory stays a few GB at any volume.
+PLAIN_PAIRS = 1 << 26
 
-    All live (cube, ray) pairs advance one step at a time; pairs whose ray
-    ended drop out of the lists, so the work follows the rays' lengths."""
+
+def relight_pass_plain(contents, light_rgb, face_rows, ctx, dyn=False, work=None):
+    """Plain PyTorch pass: (incoming f32[X,Y,Z,3], total f32[X,Y,Z]) over
+    the chart rays, without the root-step term `ctx.incoming0`. With
+    `dyn` the light-only variant: no emission, sky or total terms (total
+    comes back 0), and 0 light on the ring outside the bounds.
+
+    In each slab of cubes, all live (cube, ray) pairs advance one step at
+    a time; pairs whose ray ended drop out of the lists, so the work
+    follows the rays' lengths. `work`, a dict, gets the work the kernel
+    does on these inputs, by branch: "weights" (ray weights of the cubes
+    that have any), "rays" (live pairs), "steps" (pair steps), "inside"
+    (steps into a cube of the volume), "visible", "struck" and "through"
+    (steps that take those branches)."""
     X, Y, Z = contents.shape
     dev = contents.device
     V = X * Y * Z
     pairs = ctx.pairs
-    lp = _ring_padded_light(light_rgb, pairs.sky_faces).reshape(-1, 3)
+    ring = torch.zeros_like(pairs.sky_faces) if dyn else pairs.sky_faces
+    lp = _ring_padded_light(light_rgb, ring).reshape(-1, 3)
+    incoming = torch.zeros((V, 3), dtype=torch.float32, device=dev)
+    total = torch.zeros(V, dtype=torch.float32, device=dev)
+    tally: dict = {}
+    slab = max(1, PLAIN_PAIRS // pairs.cosines.shape[0])
+    for c0 in range(0, V, slab):
+        _plain_slab(contents, lp, face_rows, ctx, dyn, c0, min(V, c0 + slab), incoming, total, tally)
+    if work is not None:
+        for k, n in tally.items():
+            work[k] = work.get(k, 0) + int(n)
+    return incoming.reshape(X, Y, Z, 3), total.reshape(X, Y, Z)
+
+
+def _plain_slab(contents, lp, face_rows, ctx, dyn, c0, c1, incoming, total, tally):
+    """`relight_pass_plain` over the cubes c0 <= c < c1 (flat index):
+    adds into `incoming` f32[V,3] and `total` f32[V], and the work by
+    branch into `tally`."""
+    X, Y, Z = contents.shape
+    dev = contents.device
+    V = X * Y * Z
+    pairs = ctx.pairs
     normals = torch.as_tensor(faces.FACE_NORMALS, dtype=torch.int32, device=dev)
 
-    dw = ctx.dir_weights.reshape(V, 6)
+    def count(key, n):
+        tally[key] = tally.get(key, 0) + n
+
+    dw = ctx.dir_weights.reshape(V, 6)[c0:c1]
     cos = pairs.cosines
     rw_all = dw[:, 0:1] * cos[:, 0]
     for f in range(1, 6):
         rw_all = rw_all + dw[:, f : f + 1] * cos[:, f]
-    a0 = ctx.alpha0.reshape(V)
-    live0 = (rw_all > 0.0) & (a0 > 0.0)[:, None] & ~ctx.origin_opaque.reshape(V, 1)
+    a0 = ctx.alpha0.reshape(V)[c0:c1]
+    walked = (a0 > 0.0) & ~ctx.origin_opaque.reshape(V)[c0:c1]
+    count("weights", (walked & (dw > 0.0).any(-1)).sum() * cos.shape[0])
+    live0 = (rw_all > 0.0) & walked[:, None]
     c_idx, r_idx = live0.nonzero(as_tuple=True)
     w = rw_all[c_idx, r_idx]
     alpha = a0[c_idx]
+    c_idx = c_idx + c0
+    count("rays", c_idx.numel())
     cx = torch.div(c_idx, Y * Z, rounding_mode="floor")
     cy = torch.div(c_idx, Z, rounding_mode="floor") % Y
     cz = c_idx % Z
     flat_contents = contents.reshape(-1)
 
-    incoming = torch.zeros((V, 3), dtype=torch.float32, device=dev)
-    total = torch.zeros(V, dtype=torch.float32, device=dev)
     for s in range(pairs.step_face.shape[1]):
         if c_idx.numel() == 0:
             break
+        count("steps", c_idx.numel())
         off = pairs.step_off[r_idx, s]
         face = pairs.step_face[r_idx, s]
         px, py, pz = cx + off[:, 0], cy + off[:, 1], cz + off[:, 2]
@@ -154,7 +203,7 @@ def relight_pass_plain(contents, light_rgb, face_rows, ctx):
         flags = row[:, 4]
         opaque_f = torch.remainder(flags, 2.0) >= 1.0
         visible = flags >= 2.0
-        emission = row[:, 5:8]
+        emission = torch.zeros_like(row[:, 5:8]) if dyn else row[:, 5:8]
         hit_alpha = fc[:, 3].clamp(0.0, 1.0)
         interacting = ~exits & visible
 
@@ -184,30 +233,34 @@ def relight_pass_plain(contents, light_rgb, face_rows, ctx):
 
         alpha = torch.where(hit_opaque, torch.zeros_like(alpha), alpha)
         ends = exits | hit_opaque | (alpha <= 0.0)
-        contrib = contrib + torch.where(
-            ends[:, None], pairs.sky_ray[r_idx] * (alpha * w)[:, None], zero3
-        )
+        if not dyn:
+            contrib = contrib + torch.where(
+                ends[:, None], pairs.sky_ray[r_idx] * (alpha * w)[:, None], zero3
+            )
+            total.index_add_(0, c_idx, torch.where(ends, w, torch.zeros_like(w)))
         incoming.index_add_(0, c_idx, contrib)
-        total.index_add_(0, c_idx, torch.where(ends, w, torch.zeros_like(w)))
+        count("inside", (~exits).sum())
+        count("visible", interacting.sum())
+        count("struck", struck.sum())
+        count("through", through.sum())
 
         keep = ~ends
         c_idx, r_idx, w, alpha = c_idx[keep], r_idx[keep], w[keep], alpha[keep]
         cx, cy, cz = cx[keep], cy[keep], cz[keep]
-    return incoming.reshape(X, Y, Z, 3), total.reshape(X, Y, Z)
 
 
 def _fn():
     lib = kernels.load_library("relight")
     fn = lib.aic_relight_pass
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def relight_pass_cuda(contents, light_rgb, face_rows, ctx):
+def relight_pass_cuda(contents, light_rgb, face_rows, ctx, dyn=False):
     """Launch `csrc/relight.cu` on the tensors' card; same contract as
     `relight_pass_plain`."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_DYN
     dev = contents.device
     X, Y, Z = contents.shape
     V = X * Y * Z
@@ -237,19 +290,23 @@ def relight_pass_cuda(contents, light_rgb, face_rows, ctx):
         ptr(ctx.alpha0), ptr(ctx.origin_opaque), ptr(p.sky_faces), ptr(p.cosines),
         ptr(p.sky_ray), ptr(p.ray_start), ptr(p.off), ptr(p.face), ptr(p.is_end),
         ptr(incoming), ptr(total),
-        X, Y, Z, R,
+        X, Y, Z, R, int(dyn),
         kernels.stream_ptr(dev),
     )
-    LAUNCHES += 1
+    if dyn:
+        LAUNCHES_DYN += 1
+    else:
+        LAUNCHES += 1
     kernels.check_launch(err, "relight kernel")
     return incoming, total
 
 
-def relight_pass(contents, light_rgb, face_rows, ctx):
-    """One relight pass over every cube: the kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+def relight_pass(contents, light_rgb, face_rows, ctx, dyn=False):
+    """One relight pass over every cube (the light-only variant with
+    `dyn`): the kernel for CUDA tensors, the plain version for CPU
+    tensors."""
     if contents.device.type == "cuda":
-        return relight_pass_cuda(contents, light_rgb, face_rows, ctx)
+        return relight_pass_cuda(contents, light_rgb, face_rows, ctx, dyn)
     if contents.device.type == "cpu":
-        return relight_pass_plain(contents, light_rgb, face_rows, ctx)
+        return relight_pass_plain(contents, light_rgb, face_rows, ctx, dyn)
     raise ValueError(f"no relight pass for device {contents.device}")

@@ -114,8 +114,9 @@ class Camera:
         world_to_eye = np.linalg.inv(self.eye_to_world)
         self.inverse_projection_view = np.linalg.inv(projection @ world_to_eye)
 
-    def pixel_rays(self, supersample: bool = False, device="cpu"):
-        """Tensors of per-pixel rays on `device`: (origins, directions) f32[H,W,3].
+    def pixel_rays(self, supersample: bool = False, device="cuda"):
+        """Tensors of per-pixel rays on `device` (the card unless the
+        caller asks for the CPU): (origins, directions) f32[H,W,3].
 
         Pixel centers map to NDC exactly like the reference's
         `Viewport::normalize_nominal_point` (x right, y *up* in NDC, so row 0

@@ -3,10 +3,11 @@
 Port of `aic_tpu/raytrace/render.py` (the reference's `RtRenderer::draw`,
 all-is-cubes-render/src/raytracer/renderer.rs:183,543-556): per-pixel
 rays, traced by `trace_kernel.trace_rays_kernel`, then bloom, exposure,
-tone mapping and sRGB. The tracer is always the megakernel: the CUDA
-kernel for a state on the card, its plain twin on the CPU (`aic_tpu`'s
-2^19-ray dispatch threshold is a TPU measurement, and the XLA tracer is
-not ported yet).
+tone mapping and sRGB. The tracer is the megakernel where its tables fit
+and the v1 surface finder elsewhere, each the CUDA kernel for a state on
+the card and its plain twin on the CPU (`aic_tpu`'s 2^19-ray threshold
+for its XLA tracer is a TPU measurement, and that tracer is not ported
+yet).
 
 Not ported yet: bounce lighting, depth and pixel-cost renders, and
 windowing of states larger than the megakernel's 4096 regions.

@@ -28,6 +28,9 @@ device-to-host check, are gone.
 
 `run_megakernel` dispatches on the tensors' device: CPU → the plain
 vectorised version, CUDA → the kernel or an exception.
+`trace_rays_kernel` takes the megakernel where its tables fit
+(`megakernel_fits`) and the v1 surface finder (`trace_kernel_v1.py`)
+elsewhere, as `aic_tpu`'s `trace_rays_pallas` does.
 """
 
 from __future__ import annotations
@@ -139,11 +142,13 @@ def build_bitmask_ctx2(state: SpaceState) -> BitmaskCtx2:
     n_regions = rd[0] * rd[1] * rd[2]
     if n_regions > MAX_REGIONS:
         raise ValueError(
-            f"{n_regions} regions > {MAX_REGIONS}: window the state first"
+            f"{n_regions} regions > {MAX_REGIONS}: window the state; the XLA "
+            "tracer (ROADMAP A8), which would hold it, is not ported yet"
         )
     if t.padded_voxel_resolution > 2 * REGION:
         raise ValueError(
-            f"voxel resolution {t.padded_voxel_resolution} > {2 * REGION} unsupported"
+            f"voxel resolution {t.padded_voxel_resolution} > {2 * REGION} unsupported; "
+            "the XLA tracer (ROADMAP A8), which would hold it, is not ported yet"
         )
 
     rows = np.empty((n_regions, 128), np.uint32)
@@ -295,9 +300,10 @@ def get_bitmask_ctx2(state: SpaceState) -> BitmaskCtx2:
 
 def megakernel_fits(state: SpaceState) -> bool:
     """`aic_tpu` `_megakernel_fits` (pallas_trace.py:1107-1117), kept so
-    that the tables compare field for field: palette ids must fit the
-    15-bit classify code and the tables 10 MiB (a VMEM limit on the TPU).
-    States outside them need the v1 kernel, which is not ported yet."""
+    that both packages send the same states to each kernel: palette ids
+    must fit the 15-bit classify code and the tables 10 MiB (a VMEM limit
+    on the TPU; the card's kernel reads them from global memory). States
+    outside them go to the v1 kernel."""
     if state.tables.visible.shape[0] > 0x8000:
         return False
     ctx2 = get_bitmask_ctx2(state)
@@ -324,13 +330,20 @@ def _w(cond, a, b):
     return torch.where(cond, a, b)
 
 
-def megakernel_plain(rays: dict, st: dict, ctx: BitmaskCtx2) -> dict:
+def megakernel_plain(rays: dict, st: dict, ctx: BitmaskCtx2, work: dict | None = None) -> dict:
     """Plain PyTorch megakernel: the kernel's per-ray logic as a masked
     loop over all rays. Runs up to `MAX_ITERS` iterations; each iteration
     does, per walking ray, either one macro step across an empty region
     or up to `SUBSTEPS` cube steps within its current domain, then pops
     rays leaving a voxel grid and classifies rays that hit an outer cube.
-    Returns the 28 state fields."""
+    Returns the 28 state fields. `work`, a dict, gets the work the
+    kernel does on these inputs, by branch: "rays"; "iters" and
+    "outer_iters" (iterations of rays not done, and of those walking an
+    outer domain); "macro_steps"; "steps" and "outer_steps" (cube-step
+    attempts, and those in an outer domain); "tests" (attempts that test
+    a bit: neither a region change nor a step out of the volume or grid);
+    "hits"; "restores"; "classify" (outer hits classified through a
+    page) and "pushes" (those that enter a voxel grid)."""
     s = {k: v.clone() for k, v in st.items()}
     ox, oy, oz = rays["ox"], rays["oy"], rays["oz"]
     dx, dy, dz = rays["dx"], rays["dy"], rays["dz"]
@@ -356,6 +369,12 @@ def megakernel_plain(rays: dict, st: dict, ctx: BitmaskCtx2) -> dict:
         ax_, ay_, az_ = ax_.clamp(0, 31), ay_.clamp(0, 31), az_.clamp(0, 31)
         return ((ax_ >> 4) & 1) * 4 + ((ay_ >> 4) & 1) * 2 + ((az_ >> 4) & 1)
 
+    def count(key, mask):
+        if work is not None:
+            work[key] = work.get(key, 0) + int(mask.sum())
+
+    if work is not None:
+        work["rays"] = work.get("rays", 0) + ox.shape[0]
     for _ in range(MAX_ITERS):
         if not bool((s["mode"] != MODE_DONE).any()):
             break
@@ -363,10 +382,13 @@ def megakernel_plain(rays: dict, st: dict, ctx: BitmaskCtx2) -> dict:
         dom, cx, cy, cz = s["dom"], s["cx"], s["cy"], s["cz"]
         walking = s["mode"] == MODE_WALK
         inner = dom >= n_regions
+        count("iters", s["mode"] != MODE_DONE)
+        count("outer_iters", walking & ~inner)
         dom_c = dom.clamp(0, MAX_REGIONS - 1)
         l1bit = (l1[(dom_c >> 5).long()] >> (dom_c & 31)) & 1
         inb = ~outside(cx, cy, cz, sx, sy, sz)
         in_empty = walking & ~inner & (l1bit == 0) & inb
+        count("macro_steps", in_empty)
         rbx, rby, rbz = ((cx >> 4) + spx) << 4, ((cy >> 4) + spy) << 4, ((cz >> 4) + spz) << 4
         rtx = _w(stx == 0, inf, (rbx.float() - ox) * ivx)
         rty = _w(sty == 0, inf, (rby.float() - oy) * ivy)
@@ -429,6 +451,10 @@ def megakernel_plain(rays: dict, st: dict, ctx: BitmaskCtx2) -> dict:
             bit = (word >> (local & 31)) & 1
             hit_now = act & ~out_exit & ~in_exit & ~region_change & (bit == 1)
             commit = act & ~region_change
+            count("steps", act)
+            count("outer_steps", act & ~inner)
+            count("tests", commit & ~out_exit & ~in_exit)
+            count("hits", hit_now)
             s["dom"] = _w(act & region_change, new_dom, dom)
             s["cx"], s["cy"], s["cz"] = _w(commit, ncx, cx), _w(commit, ncy, cy), _w(commit, ncz, cz)
             s["tmx"], s["tmy"], s["tmz"] = _w(commit, utx, tmx), _w(commit, uty, tmy), _w(commit, utz, tmz)
@@ -448,6 +474,7 @@ def megakernel_plain(rays: dict, st: dict, ctx: BitmaskCtx2) -> dict:
 
         # ---- restore: pop the outer DDA registers -------------------------
         restoring = s["mode"] == MODE_RESTORE
+        count("restores", restoring)
         for k, sk in (("dom", "sdom"), ("cx", "scx"), ("cy", "scy"), ("cz", "scz"),
                       ("tmx", "stmx"), ("tmy", "stmy"), ("tmz", "stmz")):
             s[k] = _w(restoring, s[sk], s[k])
@@ -485,6 +512,8 @@ def megakernel_plain(rays: dict, st: dict, ctx: BitmaskCtx2) -> dict:
             vrow = vent  # one row per entry in no-R32 scenes
             rl = (u16v >> 12) & 7
             atom_pidx = u16v & 0x7FFF
+        count("classify", pend)
+        count("pushes", is_vox)
         atom = pend & ~is_vox
         s["hit"] = _w(atom, HIT_OUTER, s["hit"])
         s["pidx"] = _w(atom, atom_pidx, s["pidx"])
@@ -624,39 +653,16 @@ def initial_state(state: SpaceState, o: torch.Tensor, d: torch.Tensor, ctx: Bitm
     return rays, st, entry
 
 
-def trace_rays_kernel(
-    state: SpaceState,
-    origins: torch.Tensor,
-    directions: torch.Tensor,
-    options,
-):
-    """Trace rays through the megakernel (`aic_tpu` `trace_rays_pallas`
-    with the v2 kernel). Returns (light f32[...,3] premultiplied HDR with
-    the sky added, transmittance f32[...], all 0 once the sky is added,
-    unfinished bool): `unfinished` is the Flaws::UNFINISHED analog, set
-    when a ray used up its budget of `MAX_ITERS` iterations.
-
-    Each of up to `PHASES` phases launches the kernel once, then shades
-    the phase's hits; a ray resumes in the next phase while its
-    transmittance is at least 1/256."""
-    if not megakernel_fits(state):
-        raise ValueError("state exceeds the megakernel's tables; the v1 kernel is not ported yet")
-    ctx = get_bitmask_ctx2(state)
-    batch_shape = origins.shape[:-1]
-    dev = state.device
-    lower = torch.as_tensor(state.lower, dtype=torch.float32, device=dev)
-    o = (origins.reshape(-1, 3).to(torch.float32) - lower).contiguous()
-    d = directions.reshape(-1, 3).to(torch.float32).contiguous()
-    m = o.shape[0]
+def _phases_v2(ctx: BitmaskCtx2, rays: dict, st: dict, shade_fn, state: SpaceState):
+    """The megakernel phase loop: each of up to `PHASES` phases launches
+    the kernel once, then shades the phase's hits; a ray resumes in the
+    next phase while its transmittance is at least 1/256. Returns (light,
+    transmittance, unfinished), the sky not yet added."""
+    dev = ctx.rows.device
+    m = rays["ox"].shape[0]
     tables = state.tables
     max_r = tables.padded_voxel_resolution
     vox_r3 = max_r * max_r * max_r
-
-    rays, st, entry = initial_state(state, o, d, ctx)
-    d_len = entry["d_len"]
-    t_to_view = d_len / float(options.view_distance)
-    sky_rgb = _sky_sample(state, d)
-    shade_fn = make_phase_shader(state, options, o, d, d_len, t_to_view, sky_rgb)
     has_vox = ctx.pages is not None
     flat_contents = state.contents.reshape(-1)
     sx, sy, sz = ctx.size
@@ -698,7 +704,46 @@ def trace_rays_kernel(
         if not bool(resume.any()):
             break
         st = dict(st, mode=resume.to(torch.int32), hit=torch.zeros_like(st["hit"]))
+    return light_acc, trans_acc, bool(unfinished)
+
+
+def trace_rays_kernel(
+    state: SpaceState,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    options,
+    megakernel: bool | None = None,
+):
+    """Trace rays (`aic_tpu` `trace_rays_pallas`). Returns (light
+    f32[...,3] premultiplied HDR with the sky added, transmittance
+    f32[...], all 0 once the sky is added, unfinished bool): `unfinished`
+    is the Flaws::UNFINISHED analog, set when a ray used up its budget.
+
+    `megakernel` picks the kernel as `trace_rays_pallas` does: None takes
+    the megakernel where `megakernel_fits` says its tables fit and the v1
+    surface finder elsewhere; False forces v1, True the megakernel. A
+    state that neither holds raises ValueError."""
+    from .trace_kernel_v1 import get_bitmask_ctx, trace_phases_v1
+
+    if megakernel is None:
+        megakernel = megakernel_fits(state)
+    ctx = get_bitmask_ctx2(state) if megakernel else get_bitmask_ctx(state)
+    batch_shape = origins.shape[:-1]
+    dev = state.device
+    lower = torch.as_tensor(state.lower, dtype=torch.float32, device=dev)
+    o = (origins.reshape(-1, 3).to(torch.float32) - lower).contiguous()
+    d = directions.reshape(-1, 3).to(torch.float32).contiguous()
+
+    rays, st, entry = initial_state(state, o, d, ctx)
+    d_len = entry["d_len"]
+    t_to_view = d_len / float(options.view_distance)
+    sky_rgb = _sky_sample(state, d)
+    shade_fn = make_phase_shader(state, options, o, d, d_len, t_to_view, sky_rgb)
+    if megakernel:
+        light_acc, trans_acc, unfinished = _phases_v2(ctx, rays, st, shade_fn, state)
+    else:
+        light_acc, trans_acc, unfinished = trace_phases_v1(state, ctx, rays, st, d_len, shade_fn)
 
     light = (light_acc + sky_rgb * trans_acc[..., None]).reshape(batch_shape + (3,))
     trans = torch.zeros_like(trans_acc).reshape(batch_shape)
-    return light, trans, bool(unfinished)
+    return light, trans, unfinished

@@ -2,10 +2,10 @@
 
 Port of `aic_tpu/space/space.py`. The host side (palette dedup, block
 evaluation, `set`/`fill`, the fast light seed) is copied unchanged;
-`snapshot(device=...)` builds the same numpy tables and hands them over
-with `torch.as_tensor`. Left out until later slices: `extract`,
-`absorb`, palette GC reporting helpers beyond what `ensure_block` needs,
-and `cells` (see `state.py`).
+`snapshot(device=...)` builds the same numpy tables and packed cells
+and hands them over with `torch.as_tensor`. Left out until later slices:
+`extract`, `absorb`, and palette GC reporting helpers beyond what
+`ensure_block` needs.
 """
 
 from __future__ import annotations
@@ -195,8 +195,12 @@ class Space:
 
     # -- device snapshot -------------------------------------------------------
 
-    def snapshot(self, pad_palette_to: int = 8, device="cpu") -> SpaceState:
-        """Build the tensor SpaceState on `device` (content → device handoff)."""
+    def snapshot(self, pad_palette_to: int = 8, device="cuda") -> SpaceState:
+        """Build the tensor SpaceState on `device` (content → device
+        handoff). The default is the card; `device="cpu"` asks for the
+        CPU."""
+        from ..raytrace import accel
+
         evs = self._evaluated
         p_live = len(evs)
         p = max(pad_palette_to, _round_up(p_live, 8))
@@ -220,6 +224,7 @@ class Space:
         col_max = min(max_r, _COLLISION_MAX_RES)
         collision_res = np.ones(p, np.int32)
         vox_solid = np.zeros((v, col_max, col_max, col_max), bool)
+        vox_cells = np.zeros((v, max_r, max_r, max_r), np.int32)
 
         for vi, bi in enumerate(vox_entries):
             ev = evs[bi]
@@ -234,6 +239,12 @@ class Space:
                 solid = solid.reshape(cr, f, cr, f, cr, f).any(axis=(1, 3, 5))
             collision_res[bi] = cr
             vox_solid[vi, :cr, :cr, :cr] = solid
+            vvis = (ev.voxels.color[..., 3] > 0) | (ev.voxels.emission != 0).any(-1)
+            vskip = accel.np_skip_distance_field(vvis)
+            vox_cells[vi, :r, :r, :r] = (
+                vvis.astype(np.int32) * accel.VISIBLE_BIT
+                | (vskip & accel.SKIP_MASK) << accel.SKIP_SHIFT
+            )
 
         for i, ev in enumerate(evs):
             resolution[i] = ev.resolution
@@ -255,6 +266,19 @@ class Space:
                     visible[i]
                 )
                 light_face_rows[i * 6 + f, 5:8] = light_emission[i]
+
+        space_cells = accel.build_trace_cells(
+            self.contents.astype(np.int32),
+            visible,
+            voxel_index >= 0,
+            res_log2,
+            payload=accel.cell_payload(voxel_index),
+        )
+        # Brick rows: the space's bricks first, then each voxel entry's.
+        cells = np.concatenate(
+            [accel.to_bricks(space_cells)] + [accel.to_bricks(vox_cells[vi]) for vi in range(v)],
+            axis=0,
+        )
 
         def t(a, dtype=None):
             out = torch.as_tensor(a, device=device)
@@ -280,6 +304,7 @@ class Space:
             contents=t(self.contents.astype(np.int32)),
             light=t(self.light.copy()),
             light_dirty=t(self.light_dirty.copy()),
+            cells=t(cells),
             tables=tables,
             sky_faces=t(sky.block_sky_faces()),
             sky_octants=t(np.asarray(sky.octants, np.float32)),

@@ -6,9 +6,10 @@ pytrees. Layouts are the JAX package's, with one dtype rule forced by
 CPU torch (no `>>`, `>=`, gather or `min` for uint32, no `max` for
 uint16): `contents` is int32 where `aic_tpu` holds uint16.
 
-Left out here: `cells`, the XLA tracer's brick rows (`aic_tpu`
-`space.py:338-415`); they come back with the XLA tracer. The megakernel
-path reads atom palette ids straight from `contents`.
+`cells` holds the packed outer cells as 4³ brick rows (`raytrace/
+accel.py`), built by the snapshot as `aic_tpu` builds them
+(`space.py:338-415`): the v1 trace path classifies its hits through
+them; the megakernel path reads its classify pages instead.
 
 `state_from_numpy` / `state_to_numpy` convert to and from the numpy
 arrays of an `aic_tpu` `SpaceState`, so tests can feed one state to both
@@ -45,6 +46,7 @@ STATE_DTYPES = {
     "contents": torch.int32,
     "light": torch.uint8,
     "light_dirty": torch.uint8,
+    "cells": torch.int32,
     "sky_faces": torch.float32,
     "sky_octants": torch.float32,
     "sky_mean": torch.float32,
@@ -96,6 +98,7 @@ class SpaceState:
     contents: torch.Tensor  # i32[X,Y,Z] palette indices
     light: torch.Tensor  # u8[X,Y,Z,4] PackedLight texels
     light_dirty: torch.Tensor  # u8[X,Y,Z] relight priority (0 = clean)
+    cells: torch.Tensor  # i32[n_bricks, 64] packed cells, space then voxel entries
     tables: BlockTables
     sky_faces: torch.Tensor  # f32[6,3] BlockSky per-face (quantized)
     sky_octants: torch.Tensor  # f32[8,3]
@@ -118,11 +121,12 @@ def state_from_numpy(
     lower,
     light_max_distance: int,
     light_enabled: bool,
-    device="cpu",
+    device="cuda",
 ) -> SpaceState:
-    """Build a port SpaceState from the numpy arrays of an `aic_tpu`
-    SpaceState: one flat dict holding the state's fields and its tables'
-    fields by name (`cells` is ignored, see the module docstring)."""
+    """Build a port SpaceState on `device` (the card unless the caller
+    asks for the CPU) from the numpy arrays of an `aic_tpu` SpaceState:
+    one flat dict holding the state's fields and its tables' fields by
+    name."""
 
     def tensor(name, dtype):
         return torch.as_tensor(np.array(fields[name]), device=device).to(dtype)

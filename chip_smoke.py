@@ -6,16 +6,28 @@
 Phases, one line each (any failure exits non-zero, nothing is caught):
 
 1. device  — the card's name; `nvidia-smi` name and power limit.
-2. build   — nvcc builds both kernels from `aic_tpu_torch/csrc/`.
+2. build   — nvcc builds the three kernels from `aic_tpu_torch/csrc/`,
+   one process per source, all started together.
 3. kernels — each CUDA kernel against its plain PyTorch twin on the
-   card: the relight pass (K2) on a small mixed scene, cornell-box 16 and
-   the atrium, one pass and the over-relaxed loop to convergence; the
-   traversal megakernel (K1) on small atom, voxel and R32 scenes and on
-   the atrium at 1920×1080. Times at the atrium's shapes.
-4. slice   — the main path at full size: atrium snapshot on the card,
-   `evaluate_light_dense`, `render` at 1920×1080 with smooth lighting;
-   launch counters, flaws, image checks, PNG under `aic_tpu_torch/_build/`.
-5. the last line: {"ok": true, "device": {...}}.
+   card: the relight pass (K2) in both variants on a small mixed scene,
+   cornell-box 16, the atrium and `plaza640` (full(ring only) +
+   light-only against the full pass), and the over-relaxed loop to
+   convergence on each; the traversal megakernel (K1) on small atom,
+   voxel and R32 scenes and on the atrium at 1920×1080; the v1 surface
+   finder (K3) on the atom and voxel scenes (first launch, and the inner
+   round) and on the atrium and `plaza640` 1920×1080 launch states. Then
+   both trace paths on the same 1920×1080 rays, atrium and `plaza640`.
+   Times at the main paths' shapes; bounds from the twins' work counts.
+4. slice   — the first main path at full size: atrium snapshot on the
+   card, `evaluate_light_dense`, `render` at 1920×1080 with smooth
+   lighting (megakernel); launch counters, flaws, image checks.
+5. slice   — the second main path: `plaza640` (640×8×640, megakernel
+   tables over budget) the same way, traced by the v1 kernel; PNGs of
+   both frames under `aic_tpu_torch/_build/`. Then a plaza frame and the
+   snapshot and relight one stage at a time, and every K3 launch of one
+   warm frame (CUDA events).
+6. the kernels line (JSON), the `nvidia-smi` line, and the last line
+   {"ok": true, "device": {...}}.
 
 Needs CUDA and the `aic_tpu_torch` package beside this file; imports no
 JAX.
@@ -35,9 +47,43 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 #: Tolerances. K2: packed light within one log step (the codec's unit;
 #: kernel and twin sum the same f32 terms in another order), status
-#: equal. K1: integer fields equal, t-like fields within 1e-5·max(1,|t|).
+#: equal. K1, K3: integer fields equal, t-like fields within
+#: 1e-5·max(1,|t|). Trace paths: pixels further apart than 2e-3
+#: (tests/test_pallas_trace.py:30) at most 0.01% of the frame (knife
+#: edges, ROADMAP §C).
 RELIGHT_MAX_STEP = 1
 TRACE_RTOL = 1e-5
+PIXEL_ATOL = 2e-3
+PIXEL_MAX_SHARE = 1e-4
+
+#: Bounds: one H100 SXM's HBM rate and float32 rate outside the tensor
+#: cores (NVIDIA's data sheet), and each kernel's operations per unit of
+#: the work its plain twin counts on the same inputs (the twins' `work`),
+#: counted by hand from the CUDA sources along each branch: one per
+#: arithmetic, comparison, logic, shift, min/max, conversion or select,
+#: one per library call (floorf, fabsf, fmodf, sqrtf), table index
+#: arithmetic included; none for loads and stores (the bytes' side) or
+#: for a branch on a computed flag. All count at the f32 rate, the card's
+#: highest outside the tensor cores, so the bound stays a least time.
+#: PERF.md ("Operation counts") gives the derivation.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+OPS = {
+    "trace_megakernel": {
+        "rays": 82, "iters": 12, "outer_iters": 22, "macro_steps": 114, "steps": 55,
+        "outer_steps": 11, "tests": 24, "hits": 2, "restores": 3, "classify": 35, "pushes": 88,
+    },
+    "trace_v1": {
+        "rays": 44, "iters": 4, "outer_iters": 22, "macro_steps": 114, "steps": 63,
+        "outer_steps": 11, "tests": 38, "hits": 3,
+    },
+    "relight_pass": {
+        "weights": 16, "rays": 12, "steps": 22, "inside": 10, "visible": 6, "struck": 50, "through": 34,
+    },
+    "relight_pass_dyn": {
+        "weights": 16, "rays": 1, "steps": 22, "inside": 10, "visible": 6, "struck": 47, "through": 31,
+    },
+}
 
 
 def fail(msg: str) -> None:
@@ -113,7 +159,7 @@ def random_rays(n, lo, hi, seed):
     return o, d / np.linalg.norm(d, axis=-1, keepdims=True)
 
 
-# -- comparisons --------------------------------------------------------------
+# -- measurement --------------------------------------------------------------
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -133,9 +179,46 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(kernel: str, nbytes_moved: int, work: dict) -> tuple[float, str]:
+    """The least time of the card for this work, in ms, and what bounds
+    it: the bytes moved once at the HBM rate, or the operations of the
+    branches these inputs take (`OPS[kernel]` times the twin's `work`)
+    at the f32 rate."""
+    ops = sum(OPS[kernel][k] * n for k, n in work.items())
+    t_bytes = nbytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _fields_agree(out_k, out_p, fields, float_fields, label):
+    """Integer fields equal, float fields within TRACE_RTOL; the max abs
+    error of the float fields."""
+    import torch
+
+    err = 0.0
+    for k in fields:
+        a, b = out_k[k], out_p[k]
+        if k in float_fields:
+            both_inf = torch.isinf(a) & torch.isinf(b) & (a == b)
+            diff = torch.where(both_inf, torch.zeros_like(a), (a - b).abs())
+            lim = TRACE_RTOL * torch.clamp(b.abs(), min=1.0)
+            if bool((diff > lim).any()):
+                fail(f"{label}: field {k} differs in {int((diff > lim).sum())} rays")
+            err = max(err, float(diff.max()))
+        elif not torch.equal(a, b):
+            fail(f"{label}: field {k} differs in {int((a != b).sum())} rays")
+    return err
+
+
 def compare_relight(state, label):
-    """K2 against its plain twin on one state (seeded light). Returns
-    (max abs error of incoming/total, kernel ms, plain ms)."""
+    """K2 against its plain twin on one state (seeded light), both
+    variants, and full(ring only) + light-only(light) against the full
+    pass. Returns {kernel name: (max abs err, kernel ms, plain ms, bound
+    ms, bound by)}."""
     import torch
     from aic_tpu_torch.light import dense
     from aic_tpu_torch.light import relight_kernel as rk
@@ -145,30 +228,62 @@ def compare_relight(state, label):
     state, _ = fast_evaluate_seed(state)
     ctx = dense.build_relight_ctx(state)
     light_rgb = lightpack.decode_rgb(state.light).contiguous()
-    args = (state.contents, light_rgb, state.tables.light_face_rows, ctx)
-    inc_k, tot_k = rk.relight_pass_cuda(*args)
-    inc_p, tot_p = rk.relight_pass_plain(*args)
-    torch.cuda.synchronize()
-    pk = dense._finish(ctx, inc_k + ctx.incoming0, tot_k).cpu().numpy().astype(np.int32)
-    pp = dense._finish(ctx, inc_p + ctx.incoming0, tot_p).cpu().numpy().astype(np.int32)
-    step = int(np.abs(pk[..., :3] - pp[..., :3]).max())
-    if step > RELIGHT_MAX_STEP or not np.array_equal(pk[..., 3], pp[..., 3]):
-        fail(f"relight kernel vs plain on {label}: {step} packed steps, "
-             f"status equal {np.array_equal(pk[..., 3], pp[..., 3])}")
-    err = max(float((inc_k - inc_p).abs().max()), float((tot_k - tot_p).abs().max()))
-    ms_k = cuda_ms(lambda: rk.relight_pass_cuda(*args), 20)
-    ms_p = cuda_ms(lambda: rk.relight_pass_plain(*args), 2)
-    phase("kernels", f"relight {label} {tuple(state.contents.shape)}: packed diff {step} "
-          f"status equal, max abs err {err:.3e}, kernel {ms_k:.3f} ms plain {ms_p:.3f} ms")
-    return err, ms_k, ms_p
+    zero = torch.zeros_like(light_rgb)
+    rows = state.tables.light_face_rows
+    p = ctx.pairs
+
+    def packed(inc, tot):
+        return dense._finish(ctx, inc + ctx.incoming0, tot).cpu().numpy().astype(np.int32)
+
+    def within_step(a, b, what):
+        step = int(np.abs(a[..., :3] - b[..., :3]).max())
+        if step > RELIGHT_MAX_STEP or not np.array_equal(a[..., 3], b[..., 3]):
+            fail(f"relight {what} on {label}: {step} packed steps, "
+                 f"status equal {np.array_equal(a[..., 3], b[..., 3])}")
+        return step
+
+    # Inputs read once; outputs incoming f32[V,3] and total f32[V].
+    moved = nbytes(state.contents, light_rgb, rows, ctx.dir_weights, ctx.alpha0,
+                   ctx.origin_opaque, p.sky_faces, p.cosines, p.sky_ray, p.ray_start,
+                   p.off, p.face, p.is_end) + state.contents.numel() * 16
+    out = {}
+    for dyn in (False, True):
+        args = (state.contents, light_rgb, rows, ctx)
+        inc_k, tot_k = rk.relight_pass_cuda(*args, dyn=dyn)
+        work: dict = {}
+        inc_p, tot_p = rk.relight_pass_plain(*args, dyn=dyn, work=work)
+        torch.cuda.synchronize()
+        step = within_step(packed(inc_k, tot_k), packed(inc_p, tot_p), "kernel vs plain"
+                           + (" (light-only)" if dyn else ""))
+        err = max(float((inc_k - inc_p).abs().max()), float((tot_k - tot_p).abs().max()))
+        ms_k = cuda_ms(lambda: rk.relight_pass_cuda(*args, dyn=dyn), 20)
+        ms_p = cuda_ms(lambda: rk.relight_pass_plain(*args, dyn=dyn), 2)
+        name = "relight_pass_dyn" if dyn else "relight_pass"
+        b_ms, b_by = bound(name, moved, work)
+        out[name] = (err, ms_k, ms_p, b_ms, b_by)
+        phase("kernels", f"relight{' light-only' if dyn else ''} {label} "
+              f"{tuple(state.contents.shape)}: packed diff {step}, max abs err {err:.3e}, "
+              f"kernel {ms_k:.3f} ms plain {ms_p:.3f} ms, work {work}, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+    full_inc, full_tot = rk.relight_pass_cuda(state.contents, light_rgb, rows, ctx)
+    st_inc, st_tot = rk.relight_pass_cuda(state.contents, zero, rows, ctx)
+    dyn_inc, _ = rk.relight_pass_cuda(state.contents, light_rgb, rows, ctx, dyn=True)
+    if not torch.equal(st_tot, full_tot):
+        fail(f"relight on {label}: total weights of the ring-only pass differ from the full pass")
+    step = within_step(packed(st_inc + dyn_inc, st_tot), packed(full_inc, full_tot),
+                       "full(ring) + light-only vs full")
+    phase("kernels", f"relight {label}: full(ring only) + light-only vs full pass: packed diff "
+          f"{step}, max abs err {float((st_inc + dyn_inc - full_inc).abs().max()):.3e}")
+    return out
 
 
 def compare_converge(space, label, dev):
     """The main path's relight on the card (`evaluate_light_dense`: the
-    seed, then passes over-relaxed with w = OVERRELAX until the plain
-    pass moves no cube by more than one step) against the same loop with
-    the kernel's plain twin as the pass: passes within one, packed light
-    within one step, statuses equal."""
+    seed, the full pass once over ring-only light, then light-only
+    passes over-relaxed with w = OVERRELAX until the plain pass moves no
+    cube by more than one step) against the same loop with the kernel's
+    plain twin as the pass: passes within one, packed light within one
+    step, statuses equal."""
     from aic_tpu_torch.light import dense
     from aic_tpu_torch.light import relight_kernel as rk
 
@@ -190,40 +305,171 @@ def compare_converge(space, label, dev):
           f"(plain {want_passes}), packed diff {step}, status equal")
 
 
-def compare_trace(state, o, d, label):
-    """K1 against its plain twin from the phase-1 launch state. Returns
-    (max abs error of the float fields, kernel ms, plain ms)."""
+def _local_rays(state, o, d):
     import torch
-    from aic_tpu_torch.raytrace import trace_kernel as tk
 
-    ctx = tk.get_bitmask_ctx2(state)
     dev = state.device
     lower = torch.as_tensor(state.lower, dtype=torch.float32, device=dev)
     o = torch.as_tensor(o, device=dev).reshape(-1, 3) - lower
     d = torch.as_tensor(d, device=dev).reshape(-1, 3)
-    rays, st, _ = tk.initial_state(state, o.contiguous(), d.contiguous(), ctx)
+    return o.contiguous(), d.contiguous()
+
+
+def compare_trace(state, o, d, label):
+    """K1 against its plain twin from the phase-1 launch state. Returns
+    (max abs error of the float fields, kernel ms, plain ms, bound ms,
+    bound by)."""
+    import torch
+    from aic_tpu_torch.raytrace import trace_kernel as tk
+
+    ctx = tk.get_bitmask_ctx2(state)
+    o, d = _local_rays(state, o, d)
+    rays, st, _ = tk.initial_state(state, o, d, ctx)
     out_k = tk.megakernel_cuda(rays, st, ctx)
-    out_p = tk.megakernel_plain(rays, st, ctx)
+    work: dict = {}
+    out_p = tk.megakernel_plain(rays, st, ctx, work=work)
     torch.cuda.synchronize()
     if bool((out_p["mode"] != tk.MODE_DONE).any()):
         fail(f"trace {label}: plain megakernel left rays walking after {tk.MAX_ITERS} iterations")
-    err = 0.0
-    for k in tk.STATE_FIELDS:
-        a, b = out_k[k], out_p[k]
-        if k in tk.FLOAT_FIELDS:
-            both_inf = torch.isinf(a) & torch.isinf(b) & (a == b)
-            diff = torch.where(both_inf, torch.zeros_like(a), (a - b).abs())
-            lim = TRACE_RTOL * torch.clamp(b.abs(), min=1.0)
-            if bool((diff > lim).any()):
-                fail(f"trace {label}: field {k} differs in {int((diff > lim).sum())} rays")
-            err = max(err, float(diff.max()))
-        elif not torch.equal(a, b):
-            fail(f"trace {label}: field {k} differs in {int((a != b).sum())} rays")
+    err = _fields_agree(out_k, out_p, tk.STATE_FIELDS, tk.FLOAT_FIELDS, f"trace {label}")
     ms_k = cuda_ms(lambda: tk.megakernel_cuda(rays, st, ctx), 20)
     ms_p = cuda_ms(lambda: tk.megakernel_plain(rays, st, ctx), 2)
-    phase("kernels", f"trace {label} {o.shape[0]} rays: 28 fields agree, max abs err "
-          f"{err:.3e}, kernel {ms_k:.3f} ms plain {ms_p:.3f} ms")
-    return err, ms_k, ms_p
+    m = o.shape[0]
+    moved = m * (12 * 4 + 2 * len(tk.STATE_FIELDS) * 4) + nbytes(ctx.rows, ctx.l1, ctx.page_idx, ctx.pages)
+    b_ms, b_by = bound("trace_megakernel", moved, work)
+    phase("kernels", f"trace {label} {m} rays: 28 fields agree, max abs err {err:.3e}, "
+          f"kernel {ms_k:.3f} ms plain {ms_p:.3f} ms, work {work}, bound {b_ms:.4f} ms ({b_by})")
+    return err, ms_k, ms_p, b_ms, b_by
+
+
+def compare_v1(state, o, d, label, inner_round=False):
+    """K3 against its plain twin from the phase-1 launch state (and, with
+    `inner_round`, from the state the round glue makes of its result).
+    Returns (max abs error of the float fields, kernel ms, plain ms, bound
+    ms, bound by) of the first launch."""
+    import torch
+    from aic_tpu_torch.raytrace import trace_kernel as tk
+    from aic_tpu_torch.raytrace import trace_kernel_v1 as v1
+
+    ctx = v1.get_bitmask_ctx(state)
+    o, d = _local_rays(state, o, d)
+    rays, st2, entry = tk.initial_state(state, o, d, ctx)
+    st = v1.initial_state_v1(st2)
+    out_k = v1.surface_finder_cuda(rays, st, ctx)
+    work: dict = {}
+    out_p = v1.surface_finder_plain(rays, st, ctx, work=work)
+    torch.cuda.synchronize()
+    if bool(out_p["walking"].any()):
+        fail(f"trace v1 {label}: plain surface finder left rays walking after {v1.ITERS} iterations")
+    err = _fields_agree(out_k, out_p, v1.OUT_FIELDS, v1.FLOAT_FIELDS, f"trace v1 {label}")
+    note = ""
+    if inner_round:
+        saved, hb = v1.empty_buffers(o.shape[0], state.device)
+        st_b, _, _ = v1.advance(state, ctx, rays, entry["d_len"], st, saved, hb, out_p)
+        out_kb = v1.surface_finder_cuda(rays, st_b, ctx)
+        out_pb = v1.surface_finder_plain(rays, st_b, ctx)
+        err = max(err, _fields_agree(out_kb, out_pb, v1.OUT_FIELDS, v1.FLOAT_FIELDS,
+                                     f"trace v1 {label} inner round"))
+        kinds = sorted(set(out_pb["hit"].cpu().numpy().tolist()))
+        note = f"; inner round agrees (hit kinds {kinds})"
+    ms_k = cuda_ms(lambda: v1.surface_finder_cuda(rays, st, ctx), 20)
+    ms_p = cuda_ms(lambda: v1.surface_finder_plain(rays, st, ctx), 2)
+    m = o.shape[0]
+    moved = m * (12 * 4 + (len(v1.STATE_FIELDS) + len(v1.OUT_FIELDS)) * 4) + nbytes(ctx.rows, ctx.l1)
+    b_ms, b_by = bound("trace_v1", moved, work)
+    phase("kernels", f"trace v1 {label} {m} rays: 15 fields agree, max abs err {err:.3e}{note}, "
+          f"kernel {ms_k:.3f} ms plain {ms_p:.3f} ms, work {work}, bound {b_ms:.4f} ms ({b_by})")
+    return err, ms_k, ms_p, b_ms, b_by
+
+
+def compare_paths(state, o, d, opts, label):
+    """The same rays traced through the v1 path and the megakernel path:
+    pixels further apart than PIXEL_ATOL may be at most PIXEL_MAX_SHARE of
+    the frame."""
+    import torch
+    from aic_tpu_torch.raytrace import trace_kernel as tk
+
+    l1, t1, u1 = tk.trace_rays_kernel(state, o, d, opts, megakernel=False)
+    l2, t2, u2 = tk.trace_rays_kernel(state, o, d, opts, megakernel=True)
+    torch.cuda.synchronize()
+    if u1 or u2:
+        fail(f"paths {label}: unfinished rays (v1 {u1}, megakernel {u2})")
+    n = l1.shape[0] * l1.shape[1]
+    far = ((l1 - l2).abs().amax(-1) > PIXEL_ATOL) | ((t1 - t2).abs() > PIXEL_ATOL)
+    n_far = int(far.sum())
+    if n_far > PIXEL_MAX_SHARE * n:
+        fail(f"paths {label}: {n_far} of {n} pixels differ by more than {PIXEL_ATOL}")
+    phase("kernels", f"paths {label}: v1 vs megakernel on {n} rays: {n_far} pixels over "
+          f"{PIXEL_ATOL} (limit {int(PIXEL_MAX_SHARE * n)}), max abs diff {float((l1 - l2).abs().max()):.3e}")
+
+
+def profiled_frame(fn) -> str:
+    """Wall time of one synchronized call of `fn` under torch.profiler,
+    the device time it recorded (the self time of the device events, as
+    the profiler's own table sums it: the CPU ops' rows repeat the time
+    of the kernels they launch), the busy share, and the five kernels
+    that took the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [
+        (e.self_device_time_total / 1e3, e.key, e.count)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+    ]
+    device_ms = sum(r[0] for r in rows)
+    top = sorted(rows, reverse=True)[:5]
+    return (f"wall {wall_ms:.1f} ms, device {device_ms:.3f} ms (busy {device_ms / wall_ms:.1%}); top: "
+            + "; ".join(f"{k[:60]} {ms:.3f} ms x{n}" for ms, k, n in top))
+
+
+def v1_launch_ms(fn) -> list:
+    """CUDA-event times of every K3 launch made while `fn` runs."""
+    import torch
+    from aic_tpu_torch.raytrace import trace_kernel_v1 as v1
+
+    real = v1.surface_finder_cuda
+    events = []
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args)
+        end.record()
+        events.append((start, end))
+        return out
+
+    v1.surface_finder_cuda = timed
+    try:
+        fn()
+    finally:
+        v1.surface_finder_cuda = real
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in events]
+
+
+def check_frame(frame, state, label):
+    if frame.flaws:
+        fail(f"{label}: render flaws {frame.flaws}")
+    img = frame.data
+    if img.shape != (1080, 1920, 4):
+        fail(f"{label}: image shape {img.shape}")
+    if not (state.light.cpu().numpy()[..., 3] == 255).any():
+        fail(f"{label}: relight left no visible light")
+    if img[..., :3].reshape(-1, 3).std(0).max() == 0:
+        fail(f"{label}: the image is constant")
+    coverage = float((img[..., 3] > 0).mean())
+    if coverage <= 0.5:
+        fail(f"{label}: alpha coverage {coverage:.3f} <= 0.5")
+    return coverage
 
 
 def main() -> None:
@@ -238,13 +484,17 @@ def main() -> None:
     except ImportError as e:
         fail(f"the aic_tpu_torch package is not beside chip_smoke.py ({e})")
     from aic_tpu_torch import block, kernels
-    from aic_tpu_torch.content import atrium, cornell_box
-    from aic_tpu_torch.light import evaluate_light_dense
+    from aic_tpu_torch.content import atrium, cornell_box, plaza
+    from aic_tpu_torch.light import dense, evaluate_light_dense
     from aic_tpu_torch.light import relight_kernel as rk
+    from aic_tpu_torch.light.refproc import fast_evaluate_seed
     from aic_tpu_torch.main import default_camera
+    from aic_tpu_torch.math import lightpack
     from aic_tpu_torch.math.grid import GridAab
-    from aic_tpu_torch.raytrace import GraphicsOptions, render, save_png
+    from aic_tpu_torch.raytrace import GraphicsOptions, accel, render, save_png
     from aic_tpu_torch.raytrace import trace_kernel as tk
+    from aic_tpu_torch.raytrace import trace_kernel_v1 as v1
+    from aic_tpu_torch.raytrace.render import finish_frame
     from aic_tpu_torch.space import Sky, Space, SpacePhysics
 
     dev = torch.device("cuda", 0)
@@ -257,90 +507,174 @@ def main() -> None:
 
     # 2. build
     t0 = time.perf_counter()
-    for name in ("relight", "trace"):
+    names = ("relight", "trace", "trace_v1")
+    kernels.build(*names)
+    for name in names:
         kernels.load_library(name)
     regs = {
         n: [ln.strip() for ln in info[1].splitlines() if "registers" in ln]
         for n, info in kernels.BUILD_INFO.items()
     }
-    phase("build", f"relight + trace built in {time.perf_counter() - t0:.1f} s; ptxas: {regs}")
+    phase("build", f"{' + '.join(names)} built in {time.perf_counter() - t0:.1f} s; ptxas: {regs}")
 
     # 3. kernels against their plain twins
     pkg = (block, GridAab, Space, Sky, SpacePhysics)
     small = {"mixed 12^3": relight_scene(pkg), "cornell-box 16": cornell_box(16)}
     for label, sp in small.items():
         compare_relight(sp.snapshot(device=dev), label)
-    for label, sp in trace_scenes(pkg).items():
+    scenes = trace_scenes(pkg)
+    for label, sp in scenes.items():
         o, d = random_rays(4096, -4.0, 24.0, seed=len(label))
         compare_trace(sp.snapshot(device=dev), o, d, label)
+        if label != "r32":  # the v1 kernel holds R <= 16
+            compare_v1(sp.snapshot(device=dev), o, d, label, inner_round=label == "voxels")
 
-    atrium_space = atrium()
     opts = GraphicsOptions(lighting_display="smoothstep", fog="none")
+    atrium_space = atrium()
     cam = default_camera(atrium_space, 1920, 1080, opts)
     atrium_state = atrium_space.snapshot(device=dev)
-    relight_err, relight_ms, relight_plain_ms = compare_relight(atrium_state, "atrium")
+    compare_relight(atrium_state, "atrium")
     for label, sp in dict(small, atrium=atrium_space).items():
         compare_converge(sp, label, dev)
     o, d = cam.pixel_rays(device=dev)
-    trace_err, trace_ms, trace_plain_ms = compare_trace(atrium_state, o, d, "atrium 1920x1080")
+    trace = compare_trace(atrium_state, o, d, "atrium 1920x1080")
+    trace_v1_atrium = compare_v1(atrium_state, o, d, "atrium 1920x1080")
+    compare_paths(atrium_state, o, d, opts, "atrium 1920x1080")
 
-    # 4. the slice at full size, through the kernels
-    state = atrium_space.snapshot(device=dev)
-    if tuple(state.contents.shape) != (60, 35, 40):
-        fail(f"atrium is {tuple(state.contents.shape)}, expected (60, 35, 40)")
-    rk.LAUNCHES = 0
-    tk.LAUNCHES = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, passes = evaluate_light_dense(state)
-    torch.cuda.synchronize()
-    relight_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    frame = render(state, cam)
-    first_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"relight": rk.LAUNCHES, "trace": tk.LAUNCHES}
-    phase("slice", f"atrium {tuple(state.contents.shape)} relit in {passes} passes, "
-          f"{relight_s:.3f} s; first 1920x1080 frame {first_ms:.1f} ms; launches {launches}")
-    if min(launches.values()) <= 0:
-        fail(f"a kernel of the main path was not launched: {launches}")
-    if frame.flaws:
-        fail(f"render flaws {frame.flaws}")
-    img = frame.data
-    if img.shape != (1080, 1920, 4):
-        fail(f"image shape {img.shape}")
-    lit = state.light.cpu().numpy()
-    if not (lit[..., 3] == 255).any():
-        fail("relight left no visible light")
-    if img[..., :3].reshape(-1, 3).std(0).max() == 0:
-        fail("the image is constant")
-    coverage = float((img[..., 3] > 0).mean())
-    if coverage <= 0.5:
-        fail(f"alpha coverage {coverage:.3f} <= 0.5")
+    plaza_space = plaza()
+    plaza_cam = default_camera(plaza_space, 1920, 1080, opts)
+    plaza_state = plaza_space.snapshot(device=dev)
+    if tk.megakernel_fits(plaza_state):
+        fail("plaza640's megakernel tables fit their budget: it would not take the v1 path")
+    po, pd = plaza_cam.pixel_rays(device=dev)
+    trace_v1 = compare_v1(plaza_state, po, pd, "plaza640 1920x1080")
+    compare_paths(plaza_state, po, pd, opts, "plaza640 1920x1080")
+    relight = compare_relight(plaza_state, "plaza640")
+    compare_converge(plaza_space, "plaza640", dev)
+    del plaza_state, atrium_state
 
-    reps = 5
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        frame = render(state, cam)
-    torch.cuda.synchronize()
-    frame_ms = (time.perf_counter() - t0) * 1e3 / reps
-    out_png = os.path.join(HERE, "aic_tpu_torch", "_build", "atrium_1080p.png")
-    save_png(frame, out_png)
+    def reset_counts():
+        rk.LAUNCHES = rk.LAUNCHES_DYN = tk.LAUNCHES = v1.LAUNCHES = 0
+        torch.cuda.synchronize()
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {"relight_pass": rk.LAUNCHES, "relight_pass_dyn": rk.LAUNCHES_DYN,
+                "trace_megakernel": tk.LAUNCHES, "trace_v1": v1.LAUNCHES}
+
+    def relight_and_render(space, camera):
+        t0 = time.perf_counter()
+        state = space.snapshot(device=dev)
+        torch.cuda.synchronize()
+        snapshot_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state, passes = evaluate_light_dense(state)
+        torch.cuda.synchronize()
+        relight_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        frame = render(state, camera)
+        return state, passes, snapshot_s, relight_s, frame, (time.perf_counter() - t0) * 1e3
+
+    def warm_frames(state, camera, reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            frame = render(state, camera)
+        torch.cuda.synchronize()
+        return frame, (time.perf_counter() - t0) * 1e3 / reps
+
+    # 4. the first main path: the atrium, through the megakernel
+    reset_counts()
+    state, passes, snapshot_s, relight_s, frame, first_ms = relight_and_render(atrium_space, cam)
+    atrium_counts = read_counts()
+    phase("slice", f"atrium {tuple(state.contents.shape)} snapshot {snapshot_s:.3f} s, relit in "
+          f"{passes} passes, {relight_s:.3f} s; first 1920x1080 frame {first_ms:.1f} ms; "
+          f"launches {atrium_counts}")
+    for name in ("relight_pass", "relight_pass_dyn", "trace_megakernel"):
+        if atrium_counts[name] <= 0:
+            fail(f"atrium main path: {name} was not launched: {atrium_counts}")
+    coverage = check_frame(frame, state, "atrium")
+    frame, frame_ms = warm_frames(state, cam, 5)
+    save_png(frame, os.path.join(HERE, "aic_tpu_torch", "_build", "atrium_1080p.png"))
     phase("slice", f"atrium 1920x1080 smoothstep: {frame_ms:.1f} ms/frame warm "
-          f"({1920 * 1080 / frame_ms / 1e3:.2f} Mrays/s), alpha coverage {coverage:.3f}, "
-          f"wrote {os.path.relpath(out_png, HERE)}")
+          f"({1920 * 1080 / frame_ms / 1e3:.2f} Mrays/s), alpha coverage {coverage:.3f}")
+    del state
 
+    # 5. the second main path: plaza640, through the v1 kernel
+    reset_counts()
+    state, passes, snapshot_s, relight_s, frame, first_ms = relight_and_render(plaza_space, plaza_cam)
+    plaza_counts = read_counts()
+    phase("slice", f"plaza640 {tuple(state.contents.shape)} snapshot {snapshot_s:.3f} s, relit in "
+          f"{passes} passes, {relight_s:.3f} s; first 1920x1080 frame {first_ms:.1f} ms; "
+          f"launches {plaza_counts}")
+    for name in ("relight_pass", "relight_pass_dyn", "trace_v1"):
+        if plaza_counts[name] <= 0:
+            fail(f"plaza640 main path: {name} was not launched: {plaza_counts}")
+    if plaza_counts["trace_megakernel"] != 0:
+        fail(f"plaza640 main path went through the megakernel: {plaza_counts}")
+    coverage = check_frame(frame, state, "plaza640")
+    before = v1.LAUNCHES
+    frame, frame_ms = warm_frames(state, plaza_cam, 3)
+    per_frame = (v1.LAUNCHES - before) / 3
+    save_png(frame, os.path.join(HERE, "aic_tpu_torch", "_build", "plaza640_1080p.png"))
+    phase("slice", f"plaza640 1920x1080 smoothstep: {frame_ms:.1f} ms/frame warm "
+          f"({1920 * 1080 / frame_ms / 1e3:.2f} Mrays/s), {per_frame:g} v1 launches per frame "
+          f"(rounds x phases), alpha coverage {coverage:.3f}")
+
+    # Where a plaza frame's time goes, one stage at a time.
+    stages = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = round((time.perf_counter() - t0) * 1e3, 3)
+        return out
+
+    po, pd = stage("pixel_rays", lambda: plaza_cam.pixel_rays(device=dev))
+    light, trans, _ = stage("trace", lambda: tk.trace_rays_kernel(state, po, pd, plaza_cam.options))
+    img = stage("finish", lambda: finish_frame(light, trans, float(plaza_cam.exposure), plaza_cam.options))
+    stage("to_host", lambda: img.cpu())
+    # The snapshot's packed cells (skip field included) and the relight's
+    # set-up apart from its passes.
+    snap = stage("snapshot", lambda: plaza_space.snapshot(device=dev))
+    tb = snap.tables
+    vis, vidx, rl2 = (x.cpu().numpy() for x in (tb.visible, tb.voxel_index, tb.res_log2))
+    contents_np = plaza_space.contents.astype(np.int32)
+    stage("snapshot_skip_field", lambda: accel.np_skip_distance_field(vis[contents_np]))
+    stage("snapshot_space_cells", lambda: accel.build_trace_cells(
+        contents_np, vis, vidx >= 0, rl2, payload=accel.cell_payload(vidx)))
+    seeded, _ = stage("relight_seed", lambda: fast_evaluate_seed(snap))
+    rctx = stage("relight_ctx", lambda: dense.build_relight_ctx(seeded))
+    _, conv_passes = stage("relight_passes", lambda: dense.converge(seeded, rctx, overrelax=dense.OVERRELAX))
+    lrgb = lightpack.decode_rgb(state.light).contiguous()
+    rows_ = state.tables.light_face_rows
+    stage("relight_pass_full", lambda: rk.relight_pass_cuda(state.contents, lrgb, rows_, rctx))
+    stage("relight_pass_dyn", lambda: rk.relight_pass_cuda(state.contents, lrgb, rows_, rctx, dyn=True))
+    phase("slice", f"plaza640 stages (ms, one each, synchronized; relight_passes ran "
+          f"{conv_passes}): {stages}")
+    launch_ms = v1_launch_ms(lambda: render(state, plaza_cam))
+    phase("slice", f"plaza640 K3 launches of one warm frame (CUDA events, ms): "
+          f"{[round(x, 3) for x in launch_ms]}, sum {sum(launch_ms):.3f}")
+    phase("slice", f"plaza640 warm frame under torch.profiler: {profiled_frame(lambda: render(state, plaza_cam))}")
+    phase("kernels", f"trace_v1 at the atrium 1920x1080 launch state: {trace_v1_atrium[1]:.3f} ms "
+          f"(plain {trace_v1_atrium[2]:.3f} ms, bound {trace_v1_atrium[3]:.4f} ms)")
+
+    counts = {k: atrium_counts[k] + plaza_counts[k] for k in atrium_counts}
+    rows = [
+        ("trace_megakernel", "aic_tpu_torch/csrc/trace.cu", "aic_tpu/raytrace/pallas_trace.py:1140", trace),
+        ("relight_pass", "aic_tpu_torch/csrc/relight.cu", "aic_tpu/light/pallas_relight.py:338",
+         relight["relight_pass"]),
+        ("relight_pass_dyn", "aic_tpu_torch/csrc/relight.cu", "aic_tpu/light/pallas_relight.py:338",
+         relight["relight_pass_dyn"]),
+        ("trace_v1", "aic_tpu_torch/csrc/trace_v1.cu", "aic_tpu/raytrace/pallas_trace.py:198", trace_v1),
+    ]
     print(json.dumps({"kernels": [
-        {"name": "trace_megakernel", "route": "cuda",
-         "source": "aic_tpu_torch/csrc/trace.cu",
-         "replaces": "aic_tpu/raytrace/pallas_trace.py:1140",
-         "launches": launches["trace"], "max_abs_err": trace_err,
-         "ms": trace_ms, "plain_ms": trace_plain_ms},
-        {"name": "relight_pass", "route": "cuda",
-         "source": "aic_tpu_torch/csrc/relight.cu",
-         "replaces": "aic_tpu/light/pallas_relight.py:338",
-         "launches": launches["relight"], "max_abs_err": relight_err,
-         "ms": relight_ms, "plain_ms": relight_plain_ms},
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": counts[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        for name, source, replaces, (err, ms, plain_ms, b_ms, b_by) in rows
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

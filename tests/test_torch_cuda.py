@@ -7,9 +7,9 @@ These tests need a CUDA device and skip without one. They import no JAX
 
 Tolerances are those of chip_smoke.py: the relight kernel's packed light
 within one step of the twin's with statuses equal (the two sum a cube's
-rays in another order); the megakernel's integer fields equal and float
-fields within 1e-5 relative (both round every multiply and add
-separately).
+rays in another order), for both of its variants; the trace kernels'
+(megakernel and v1 surface finder) integer fields equal and float fields
+within 1e-5 relative (both round every multiply and add separately).
 """
 
 import sys
@@ -30,7 +30,7 @@ from aic_tpu_torch.main import default_camera  # noqa: E402
 from aic_tpu_torch.math import lightpack  # noqa: E402
 from aic_tpu_torch.math.grid import GridAab  # noqa: E402
 from aic_tpu_torch.raytrace import GraphicsOptions, render, render_hdr  # noqa: E402
-from aic_tpu_torch.raytrace import trace_kernel  # noqa: E402
+from aic_tpu_torch.raytrace import trace_kernel, trace_kernel_v1  # noqa: E402
 from aic_tpu_torch.space import Sky, Space, SpacePhysics  # noqa: E402
 
 PKG = (block, GridAab, Space, Sky, SpacePhysics)
@@ -60,6 +60,36 @@ def test_relight_kernel_matches_plain(cuda_device, scene):
     pp = dense._finish(ctx, inc_p + ctx.incoming0, tot_p).cpu().numpy().astype(np.int32)
     assert np.abs(pk[..., :3] - pp[..., :3]).max() <= 1
     np.testing.assert_array_equal(pk[..., 3], pp[..., 3])
+
+
+def _packed(ctx, inc, tot):
+    return dense._finish(ctx, inc + ctx.incoming0, tot).cpu().numpy().astype(np.int32)
+
+
+@pytest.mark.parametrize("scene", ["mixed", "cornell16"])
+def test_relight_light_only_variant(cuda_device, scene):
+    """The light-only kernel against its twin, and full(ring only) +
+    light-only(light) against the full kernel: within one packed step."""
+    space = chip_smoke.relight_scene(PKG) if scene == "mixed" else cornell_box(16)
+    st, _ = fast_evaluate_seed(space.snapshot(device=cuda_device))
+    ctx = dense.build_relight_ctx(st)
+    rows = st.tables.light_face_rows
+    light = lightpack.decode_rgb(dense.relight_all_pass(st, ctx)).contiguous()
+    zero = torch.zeros_like(light)
+    before = relight_kernel.LAUNCHES_DYN
+    inc_d, tot_d = relight_kernel.relight_pass(st.contents, light, rows, ctx, dyn=True)
+    assert relight_kernel.LAUNCHES_DYN == before + 1
+    inc_p, _ = relight_kernel.relight_pass_plain(st.contents, light, rows, ctx, dyn=True)
+    assert not bool(tot_d.any())
+    full_inc, full_tot = relight_kernel.relight_pass(st.contents, light, rows, ctx)
+    st_inc, st_tot = relight_kernel.relight_pass(st.contents, zero, rows, ctx)
+    assert torch.equal(st_tot, full_tot)
+    a = _packed(ctx, inc_d + st_inc, st_tot)
+    b = _packed(ctx, inc_p + st_inc, st_tot)
+    c = _packed(ctx, full_inc, full_tot)
+    for x in (a, b):
+        assert np.abs(x[..., :3] - c[..., :3]).max() <= 1
+        np.testing.assert_array_equal(x[..., 3], c[..., 3])
 
 
 def test_overrelaxed_converge_matches_plain(cuda_device, monkeypatch):
@@ -94,6 +124,55 @@ def test_trace_kernel_matches_plain(cuda_device, scene):
             torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=0)
         else:
             assert torch.equal(got[k], want[k]), k
+
+
+def _assert_v1_fields(got, want):
+    for k in trace_kernel_v1.OUT_FIELDS:
+        if k in trace_kernel_v1.FLOAT_FIELDS:
+            torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=0)
+        else:
+            assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("scene", ["atoms", "voxels"])
+def test_trace_v1_kernel_matches_plain(cuda_device, scene):
+    """The v1 surface finder against its twin: the first launch, and on
+    the voxel scene the second (inner walks) after the round glue."""
+    st = chip_smoke.trace_scenes(PKG)[scene].snapshot(device=cuda_device)
+    o, d = chip_smoke.random_rays(2048, -4.0, 24.0, seed=1)
+    ctx = trace_kernel_v1.build_bitmask_ctx(st)
+    r, s2, entry = trace_kernel.initial_state(
+        st, torch.as_tensor(o, device=cuda_device), torch.as_tensor(d, device=cuda_device), ctx
+    )
+    s = trace_kernel_v1.initial_state_v1(s2)
+    before = trace_kernel_v1.LAUNCHES
+    got = trace_kernel_v1.run_surface_finder(r, s, ctx)
+    assert trace_kernel_v1.LAUNCHES == before + 1
+    want = trace_kernel_v1.surface_finder_plain(r, s, ctx)
+    assert not bool(want["walking"].any())
+    _assert_v1_fields(got, want)
+    if scene == "voxels":
+        saved, hb = trace_kernel_v1.empty_buffers(o.shape[0], cuda_device)
+        s, _, _ = trace_kernel_v1.advance(st, ctx, r, entry["d_len"], s, saved, hb, want)
+        assert bool((s["resl"] > 0).any())
+        _assert_v1_fields(
+            trace_kernel_v1.run_surface_finder(r, s, ctx),
+            trace_kernel_v1.surface_finder_plain(r, s, ctx),
+        )
+
+
+def test_small_atrium_v1_matches_megakernel(cuda_device):
+    """The small atrium traced through both kernels on the card."""
+    space = atrium(width=24, depth=16, floors=2)
+    st = space.snapshot(device=cuda_device)
+    opts = GraphicsOptions(lighting_display="smoothstep", fog="none")
+    o, d = default_camera(space, 96, 64, opts).pixel_rays()
+    before = trace_kernel_v1.LAUNCHES
+    l1, t1, u1 = trace_kernel.trace_rays_kernel(st, o, d, opts, megakernel=False)
+    assert trace_kernel_v1.LAUNCHES > before and not u1
+    l2, t2, u2 = trace_kernel.trace_rays_kernel(st, o, d, opts, megakernel=True)
+    assert not u2
+    np.testing.assert_allclose(l1.cpu().numpy(), l2.cpu().numpy(), atol=2e-3)
 
 
 def test_small_atrium_frame_matches_cpu(cuda_device):

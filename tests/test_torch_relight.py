@@ -17,6 +17,10 @@ therefore holds the port against the XLA loop on f32 face rows
 pass and one packed step; tests/test_torch_slice.py holds the slice's
 atrium to the same pass count. The over-relaxed loop that a CUDA state
 runs is held against `converge_pallas` to the same tolerance.
+
+`converge` runs the full pass once over ring-only light and the
+light-only (`dyn`) pass per iteration, as `converge_pallas` does; the
+split is checked against the full pass to f32 summation tolerance.
 """
 
 import dataclasses
@@ -135,6 +139,49 @@ def test_evaluate_light_dense_matches():
     step, status_equal = _packed_diff(got.light, want.light)
     assert step <= 1 and status_equal
     assert not bool((got.light_dirty > 0).any())
+
+
+@pytest.mark.parametrize("name", ["atrium_small", "cornell16", "mixed12"])
+def test_light_only_split_matches_full_pass(name):
+    """The full pass over ring-only light (interior zero, sky on the
+    ring) plus the light-only pass over a light field equals the full
+    pass over that field: total weights bit for bit (they read no light),
+    incoming light to f32 summation order; the light-only pass leaves the
+    total at 0. The field is random, from a numpy seed."""
+    _st, _ctx, tst = _seeded(name)
+    ctx = tdense.build_relight_ctx(tst)
+    rows = tst.tables.light_face_rows
+    rng = np.random.default_rng(3)
+    light_rgb = torch.as_tensor(rng.uniform(0.0, 2.0, tuple(tst.contents.shape) + (3,)).astype(np.float32))
+    zero = torch.zeros_like(light_rgb)
+    full_inc, full_tot = relight_kernel.relight_pass(tst.contents, light_rgb, rows, ctx)
+    static_inc, static_tot = relight_kernel.relight_pass(tst.contents, zero, rows, ctx)
+    dyn_inc, dyn_tot = relight_kernel.relight_pass(tst.contents, light_rgb, rows, ctx, dyn=True)
+    assert torch.equal(static_tot, full_tot)
+    assert not bool(dyn_tot.any())
+    assert bool(dyn_inc.any()) and bool(static_inc.any())
+    scale = float(full_inc.abs().max())
+    torch.testing.assert_close(static_inc + dyn_inc, full_inc, rtol=1e-5, atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("dyn", [False, True])
+def test_plain_pass_in_slabs_matches_one_slab(monkeypatch, dyn):
+    """The plain pass walks the cubes in slabs of at most `PLAIN_PAIRS`
+    (cube, ray) pairs, so that it holds plaza640's 115 M pairs on the
+    card. The pass is independent per cube: slabs that cut the volume
+    anywhere give the one-slab result bit for bit, and the same work
+    counts."""
+    _st, _ctx, tst = _seeded("mixed12")
+    ctx = tdense.build_relight_ctx(tst)
+    args = (tst.contents, lightpack.decode_rgb(tst.light).contiguous(), tst.tables.light_face_rows, ctx)
+    work_one, work_slabs = {}, {}
+    want = relight_kernel.relight_pass_plain(*args, dyn=dyn, work=work_one)
+    n_rays = ctx.pairs.cosines.shape[0]
+    monkeypatch.setattr(relight_kernel, "PLAIN_PAIRS", 97 * n_rays + 5)  # 97 cubes a slab
+    got = relight_kernel.relight_pass_plain(*args, dyn=dyn, work=work_slabs)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert work_slabs == work_one
+    assert work_one["steps"] > work_one["rays"] > 0 and work_one["struck"] > 0
 
 
 def test_overrelaxed_converge_matches_pallas(monkeypatch):

@@ -33,7 +33,7 @@ from aic_tpu_torch import main as torch_main
 from aic_tpu_torch.light import evaluate_light_dense as torch_evaluate
 from aic_tpu_torch.raytrace import Camera, GraphicsOptions, Viewport, render, render_hdr
 from aic_tpu_torch.raytrace import trace_kernel
-from test_torch_state import PKGS, to_port
+from test_torch_state import PKGS, to_port, fresh_pallas_caches  # noqa: F401 (autouse)
 
 W, H = 64, 48
 
@@ -99,7 +99,7 @@ def test_default_camera_frames_the_atrium(slice_run):
     atrium, so it takes bench.py's headline framing (the fixture's)."""
     cam = torch_main.default_camera(slice_run["space"], W, H, GraphicsOptions())
     np.testing.assert_allclose(cam.eye_to_world, slice_run["tcam"].eye_to_world)
-    o, d = cam.pixel_rays()
+    o, d = cam.pixel_rays(device="cpu")
     assert torch.isfinite(o).all() and torch.isfinite(d).all()
 
 

@@ -3,9 +3,10 @@ against `aic_tpu` (aic_tpu_torch.math / space / raytrace.trace_kernel).
 
 Scenes are built twice, once with each package's own host content code,
 from the same seeds; the port's snapshot must equal `aic_tpu`'s field for
-field (`cells`, the XLA tracer's brick rows, is not ported). The helpers
+field, the packed brick cells included. The helpers
 here (`jax_fields`, `to_port`, the scene builders) are shared by the
-other `test_torch_*` files.
+other `test_torch_*` files. The port's public functions run on the card
+unless asked for the CPU, so every call here asks for it.
 """
 
 import os
@@ -51,7 +52,7 @@ PKGS = {
     for name, m in (("jax", aic_tpu), ("torch", aic_tpu_torch))
 }
 
-STATE_KEYS = ("contents", "light", "light_dirty", "sky_faces", "sky_octants", "sky_mean")
+STATE_KEYS = ("contents", "light", "light_dirty", "cells", "sky_faces", "sky_octants", "sky_mean")
 
 
 def jax_fields(st):
@@ -70,7 +71,17 @@ def jax_fields(st):
 def to_port(st):
     """The port's CPU SpaceState holding the same arrays as `st`."""
     fields, static = jax_fields(st)
-    return state_from_numpy(fields, **static)
+    return state_from_numpy(fields, **static, device="cpu")
+
+
+@pytest.fixture(autouse=True)
+def fresh_pallas_caches(monkeypatch):
+    """`aic_tpu` caches its trace tables under `id(state.cells)` without
+    checking that the state is still alive, so a new state can be handed
+    a dead one's tables (ROADMAP §C). Every test of the port starts with
+    empty caches; the modules that import this fixture get it too."""
+    monkeypatch.setattr(pallas_trace, "_CTX_CACHE", {})
+    monkeypatch.setattr(pallas_trace, "_CTX2_CACHE", {})
 
 
 # -- scenes, buildable with either package (tests/test_pallas_trace.py) ------
@@ -197,7 +208,7 @@ class TestCodecs:
 @pytest.fixture(scope="module", params=sorted(SCENES))
 def scene_pair(request):
     build = SCENES[request.param]
-    return request.param, build(PKGS["jax"]).snapshot(), build(PKGS["torch"]).snapshot()
+    return request.param, build(PKGS["jax"]).snapshot(), build(PKGS["torch"]).snapshot(device="cpu")
 
 
 class TestSnapshot:
@@ -217,7 +228,7 @@ class TestSnapshot:
     def test_numpy_round_trip(self, scene_pair):
         _name, jst, _tst = scene_pair
         fields, static = jax_fields(jst)
-        st = state_from_numpy(fields, **static)
+        st = state_from_numpy(fields, **static, device="cpu")
         assert st.contents.dtype == torch.int32
         back, back_static = state_to_numpy(st)
         assert back_static["lower"] == tuple(static["lower"])
@@ -248,7 +259,7 @@ class TestSnapshot:
 def test_full_atrium_tables():
     """The north-star scene: 60×35×40 cubes, 36 regions + 9 R16 rows,
     512 rows of narrow pages, no R32 (host numpy only)."""
-    st = aic_tpu_torch.content.atrium().snapshot()
+    st = aic_tpu_torch.content.atrium().snapshot(device="cpu")
     assert tuple(st.contents.shape) == (60, 35, 40)
     assert st.light_max_distance == 60
     ctx = trace_kernel.build_bitmask_ctx2(st)
@@ -258,11 +269,34 @@ def test_full_atrium_tables():
     assert trace_kernel.megakernel_fits(st)
 
 
+def test_device_defaults_are_the_card():
+    """`Space.snapshot`, `Camera.pixel_rays` and `state_from_numpy` run on
+    CUDA unless the caller asks for the CPU; asked for CUDA where there is
+    no card, they raise rather than fall back."""
+    import inspect
+
+    from aic_tpu_torch.raytrace import Camera, GraphicsOptions, Viewport
+
+    for fn in (aic_tpu_torch.space.Space.snapshot, Camera.pixel_rays, state_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    if not torch.cuda.is_available():
+        p = PKGS["torch"]
+        with pytest.raises((RuntimeError, AssertionError)):
+            p.Space(p.GridAab.cube(2)).snapshot()
+        with pytest.raises((RuntimeError, AssertionError)):
+            Camera(GraphicsOptions(), Viewport(4, 2)).pixel_rays()
+        fields, static = jax_fields(scene_atoms(PKGS["jax"]).snapshot())
+        with pytest.raises((RuntimeError, AssertionError)):
+            state_from_numpy(fields, **static)
+
+
 def test_import_leaves_out_jax():
-    """The port imports no JAX, not even through `aic_tpu`."""
+    """The port and `chip_smoke.py` import no JAX, not even through
+    `aic_tpu`."""
     code = (
         "import sys; import aic_tpu_torch.main, aic_tpu_torch.light, "
-        "aic_tpu_torch.raytrace, aic_tpu_torch.content, aic_tpu_torch.kernels; "
+        "aic_tpu_torch.raytrace, aic_tpu_torch.content, aic_tpu_torch.kernels, "
+        "aic_tpu_torch.raytrace.trace_kernel_v1, chip_smoke; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'aic_tpu.'))"
         " or m == 'aic_tpu']; print(bad); sys.exit(1 if bad else 0)"
     )

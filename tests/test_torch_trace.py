@@ -25,7 +25,7 @@ from aic_tpu_torch.raytrace import trace_kernel
 from aic_tpu_torch.raytrace.options import GraphicsOptions as TorchOptions
 from aic_tpu_torch.raytrace.render import Rendering, save_png
 from test_pallas_trace import OPTS_PLAIN, grid_rays, scene_atoms, scene_r32, scene_voxels
-from test_torch_state import PKGS, to_port
+from test_torch_state import PKGS, to_port, fresh_pallas_caches  # noqa: F401 (autouse)
 
 
 def torch_options(opts: GraphicsOptions) -> TorchOptions:
