@@ -27,7 +27,7 @@ import torch
 from ..math import faces, lightpack
 from ..space.state import SpaceState
 from .chart import STEP_END, STEP_PAD, build_chart
-from .relight_kernel import PairTables, relight_pass
+from .relight_kernel import KernelTables, PairTables, deal_pair_tables, relight_pass
 
 #: Over-relaxation weight of the CUDA convergence loop (aic_tpu
 #: dense.py:710: 18 → 15 passes on light_bench; w ≥ 1.5 diverges).
@@ -75,6 +75,12 @@ def _pair_tables(max_distance: int, size: tuple[int, int, int]):
     )
 
 
+@functools.lru_cache(maxsize=16)
+def _dealt_pair_tables(max_distance: int, size: tuple[int, int, int]) -> dict:
+    """`_pair_tables` in the order the CUDA kernel's warps walk the rays."""
+    return deal_pair_tables(_pair_tables(max_distance, size))
+
+
 def _shift(vol: torch.Tensor, normal) -> torch.Tensor:
     """out[c] = vol[c + normal], zero (False) outside."""
     out = torch.zeros_like(vol)
@@ -100,6 +106,7 @@ class RelightCtx:
     origin_opaque: torch.Tensor  # bool[X,Y,Z]
     origin_emission: torch.Tensor  # f32[X,Y,Z,3]
     pairs: PairTables
+    kernel: KernelTables  # the CUDA pass's work list and mask
 
 
 def build_relight_ctx(state: SpaceState) -> RelightCtx:
@@ -135,13 +142,18 @@ def build_relight_ctx(state: SpaceState) -> RelightCtx:
     w_total = (dir_weights * cos_sum).sum(-1)
     incoming0 = root_contrib * w_total[..., None]
 
+    dir_weights = dir_weights.contiguous()
+    alpha0 = alpha0.contiguous()
+    origin_opaque = origin_opaque.contiguous()
+    pairs = PairTables.from_numpy(ch, _dealt_pair_tables(md, size), state.sky_faces)
     return RelightCtx(
-        dir_weights=dir_weights.contiguous(),
-        alpha0=alpha0.contiguous(),
+        dir_weights=dir_weights,
+        alpha0=alpha0,
         incoming0=incoming0,
-        origin_opaque=origin_opaque.contiguous(),
+        origin_opaque=origin_opaque,
         origin_emission=emission_v,
-        pairs=PairTables.from_numpy(ch, state.sky_faces),
+        pairs=pairs,
+        kernel=KernelTables.build(state.contents, t.light_face_rows, dir_weights, alpha0, origin_opaque),
     )
 
 

@@ -11,16 +11,19 @@ opaque face or when its alpha reaches 0, and then picks up the sky. The
 pass returns incoming RGB and total ray weight per cube; `dense._finish`
 packs them. Semantics are `aic_tpu` `dense._run_pairs` (dense.py:210-418).
 
-On the H100 the kernel is one thread per cube, walking the whole pair
-table ray by ray. What bounds it is latency of the dependent gathers
-along each ray (contents → face row → light), not bandwidth: the tables
-(contents, light, face rows) are a few MB and stay in L2, and every
-thread of a warp reads the same pair entry. The design keeps all per-ray
-state in registers, cuts a ray at its end instead of masking the rest of
-the table (the TPU kernel's dead-ray gate), skips cubes whose result
-`_finish` overwrites (opaque origins), and accumulates in f32 without
-atomics. The TPU kernel's octant-mirror and plane packing are layout
-tricks for its vector unit and are not carried over; f32 replaces bf16.
+On the H100 what bounds the pass is the latency of the dependent loads
+along each ray (pair entry → the entered cube → its face row → the
+light), which neither the operation bound nor the byte bound sees. The
+kernel shortens that chain and each step of it (`csrc/relight.cu` gives
+the details): a work list of the cubes that have ray weight
+(`KernelTables.cubes`); a block of 32 listed cubes whose rays are dealt
+out over `WARPS` warps (`PairTables.warp_start`), the
+warps' partial sums added in a fixed order with no atomics; a one-byte
+visibility mask, padded by one cube so that an air step reads one byte
+and no in-volume test (`KernelTables.face_mask`); and one 32-bit word
+per pair (`PairTables.words`), loaded two steps ahead. The TPU kernel's
+octant-mirror and plane packing are layout tricks for its vector unit
+and are not carried over; f32 replaces bf16.
 
 Both of the TPU kernel's variants are here, as a template flag of the one
 kernel: the full pass, and the light-only pass (`dyn=True`, the TPU
@@ -52,16 +55,69 @@ LAUNCHES = 0
 LAUNCHES_DYN = 0
 
 
+#: Warps of a kernel block; `csrc/relight.cu`'s `kWarps` (checked at load).
+WARPS = 16
+#: Listed cubes of a kernel block, one per lane.
+TILE = 32
+#: Mask bit of the padding cubes around the volume.
+MASK_OUTSIDE = 0x40
+
+
+def pack_pair_words(off: np.ndarray, face: np.ndarray, is_end: np.ndarray) -> np.ndarray:
+    """One 32-bit word per pair, as i32: the offsets as three i8 in bits
+    0-23 (x lowest), the entered face in bits 24-26, the end flag in bit
+    27; then two pad words of 0, so that the kernel may load the two words
+    after a ray's last pair.
+
+    The kernel reads only the face and the end flag: it moves each step by
+    minus the normal of the face it enters through, which this checks the
+    offsets for (every pair that does not end its ray steps one cube from
+    the previous pair, or from the origin)."""
+    if np.abs(off).max(initial=0) > 127:
+        raise ValueError("pair offsets do not fit in i8")
+    normals = np.asarray(faces.FACE_NORMALS[:6], np.int64)
+    walked = ~is_end
+    first = np.ones(len(off), bool)
+    first[1:] = is_end[:-1]
+    prev = np.where(first[:, None], 0, np.roll(off, 1, axis=0))
+    if not (off - prev == -normals[face])[walked].all():
+        raise ValueError("a pair does not enter its cube through its face")
+    off = off.astype(np.int64) & 0xFF
+    words = (off[:, 0] | off[:, 1] << 8 | off[:, 2] << 16
+             | face.astype(np.int64) << 24 | is_end.astype(np.int64) << 27)
+    return np.append(words, [0, 0]).astype(np.int32)
+
+
+def deal_rays(lengths: np.ndarray, warps: int) -> tuple[np.ndarray, np.ndarray]:
+    """The chart's rays, dealt out over `warps` warps so that each gets
+    about the same total chart length: longest first, each to the warp
+    with the least so far. Returns (ray_id i32[R], warp_start
+    i32[warps+1]): the rays in dealt order, warp k's ascending, from
+    position warp_start[k] to warp_start[k+1]."""
+    load = np.zeros(warps, np.int64)
+    share: list[list[int]] = [[] for _ in range(warps)]
+    for r in np.argsort(-lengths, kind="stable"):
+        k = int(np.argmin(load))
+        share[k].append(int(r))
+        load[k] += lengths[r]
+    ray_id = np.concatenate([np.sort(np.asarray(s, np.int64)) for s in share]).astype(np.int32)
+    warp_start = np.concatenate([[0], np.cumsum([len(s) for s in share])]).astype(np.int32)
+    return ray_id, warp_start
+
+
 @dataclass(frozen=True)
 class PairTables:
     """The chart's (ray, step) pair tables on the device, in two layouts:
-    flat with per-ray ranges for the kernel, and per (ray, step) for the
-    plain version."""
+    per (ray, step) in chart order for the plain version, and one packed
+    word per pair for the kernel, its rays in the order the kernel's warps
+    walk them (`deal_pair_tables`), so that a warp's pairs are one run of
+    `words`. Cosines and sky are per chart ray; the kernel finds them
+    through `ray_id`."""
 
-    off: torch.Tensor  # i32[N,3] cube offset entered at the pair
-    face: torch.Tensor  # i32[N] entered face
-    is_end: torch.Tensor  # u8[N] ray ends here (sky)
-    ray_start: torch.Tensor  # i32[R+1] first pair of each ray
+    words: torch.Tensor  # i32[N+2] `pack_pair_words`, rays in dealt order
+    ray_start: torch.Tensor  # i32[R+1] first word of each dealt ray
+    ray_id: torch.Tensor  # i32[R] chart ray of each dealt ray
+    warp_start: torch.Tensor  # i32[WARPS+1] first dealt ray of each kernel warp
     cosines: torch.Tensor  # f32[R,6]
     sky_ray: torch.Tensor  # f32[R,3] sky light seen along each ray
     sky_faces: torch.Tensor  # f32[6,3] BlockSky per-face light
@@ -70,14 +126,16 @@ class PairTables:
     step_end: torch.Tensor  # bool[R,S]
 
     @staticmethod
-    def from_numpy(ch: dict, sky_faces: torch.Tensor) -> "PairTables":
+    def from_numpy(ch: dict, dealt: dict, sky_faces: torch.Tensor) -> "PairTables":
+        """The flat pair tables `ch` (`dense._pair_tables`) and their deal
+        (`deal_pair_tables(ch)`) on `sky_faces`'s device."""
         dev = sky_faces.device
         ray_id = ch["ray_id"]
         n_rays = ch["cosines"].shape[0]
         counts = np.bincount(ray_id, minlength=n_rays)
-        ray_start = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+        first = np.concatenate([[0], np.cumsum(counts)])
         steps = int(counts.max())
-        pos = np.arange(len(ray_id)) - ray_start[ray_id]
+        pos = np.arange(len(ray_id)) - first[ray_id]
         step_off = np.zeros((n_rays, steps, 3), np.int32)
         step_face = np.zeros((n_rays, steps), np.int32)
         step_end = np.ones((n_rays, steps), np.bool_)
@@ -88,10 +146,10 @@ class PairTables:
         sky_ray = (cosines @ sky_faces) / cosines.sum(-1, keepdim=True)
         t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
         return PairTables(
-            off=t(ch["off"]).contiguous(),
-            face=t(ch["face"]),
-            is_end=t(ch["is_end"].astype(np.uint8)),
-            ray_start=t(ray_start),
+            words=t(dealt["words"]),
+            ray_start=t(dealt["ray_start"]),
+            ray_id=t(dealt["ray_id"]),
+            warp_start=t(dealt["warp_start"]),
             cosines=cosines,
             sky_ray=sky_ray.contiguous(),
             sky_faces=sky_faces.contiguous(),
@@ -99,6 +157,48 @@ class PairTables:
             step_face=t(step_face),
             step_end=t(step_end),
         )
+
+
+def deal_pair_tables(ch: dict) -> dict:
+    """The kernel's layout of the chart's flat pair tables
+    (`dense._pair_tables`), as numpy arrays: the rays dealt out over
+    `WARPS` warps (`deal_rays`), then words (`pack_pair_words`) and
+    ray_start in that order, ray_id and warp_start. It depends only on the
+    chart, so the caller caches it."""
+    n_rays = ch["cosines"].shape[0]
+    counts = np.bincount(ch["ray_id"], minlength=n_rays)
+    ray_id, warp_start = deal_rays(counts, WARPS)
+    position = np.empty(n_rays, np.int64)
+    position[ray_id] = np.arange(n_rays)
+    pair = np.argsort(position[ch["ray_id"]], kind="stable")  # pairs in dealt ray order
+    off, face, is_end = ch["off"][pair], ch["face"][pair], ch["is_end"][pair]
+    ray_start = np.concatenate([[0], np.cumsum(counts[ray_id])]).astype(np.int32)
+    if not is_end[ray_start[1:] - 1].all():
+        raise ValueError("a chart ray does not end at its last pair")
+    return dict(words=pack_pair_words(off, face, is_end), ray_start=ray_start, ray_id=ray_id,
+                warp_start=warp_start)
+
+
+@dataclass(frozen=True)
+class KernelTables:
+    """What the kernel reads besides the pair tables, built once per
+    context from contents (it does not depend on light)."""
+
+    cubes: torch.Tensor  # i32[n] walked cubes with any ray weight, ascending
+    face_mask: torch.Tensor  # u8[X+2,Y+2,Z+2] bit f: face f visible; MASK_OUTSIDE: padding
+
+    @staticmethod
+    def build(contents, face_rows, dir_weights, alpha0, origin_opaque) -> "KernelTables":
+        """On the tensors' device: the work list and the padded mask."""
+        X, Y, Z = contents.shape
+        dev = contents.device
+        walked = (alpha0 > 0.0) & ~origin_opaque & (dir_weights > 0.0).any(-1)
+        visible = face_rows.reshape(-1, 6, 8)[..., 4] >= 2.0
+        bits = (visible.to(torch.int32) << torch.arange(6, device=dev, dtype=torch.int32)).sum(-1)
+        mask = torch.full((X + 2, Y + 2, Z + 2), MASK_OUTSIDE, dtype=torch.uint8, device=dev)
+        mask[1:-1, 1:-1, 1:-1] = bits.to(torch.uint8)[contents.long()]
+        cubes = walked.reshape(-1).nonzero().squeeze(1).to(torch.int32)
+        return KernelTables(cubes=cubes, face_mask=mask)
 
 
 def _ring_padded_light(light_rgb: torch.Tensor, sky_faces: torch.Tensor) -> torch.Tensor:
@@ -123,7 +223,7 @@ def _ring_padded_light(light_rgb: torch.Tensor, sky_faces: torch.Tensor) -> torc
 PLAIN_PAIRS = 1 << 26
 
 
-def relight_pass_plain(contents, light_rgb, face_rows, ctx, dyn=False, work=None):
+def relight_pass_plain(contents, light_rgb, face_rows, ctx, dyn=False, work=None, lengths=None):
     """Plain PyTorch pass: (incoming f32[X,Y,Z,3], total f32[X,Y,Z]) over
     the chart rays, without the root-step term `ctx.incoming0`. With
     `dyn` the light-only variant: no emission, sky or total terms (total
@@ -135,7 +235,9 @@ def relight_pass_plain(contents, light_rgb, face_rows, ctx, dyn=False, work=None
     does on these inputs, by branch: "weights" (ray weights of the cubes
     that have any), "rays" (live pairs), "steps" (pair steps), "inside"
     (steps into a cube of the volume), "visible", "struck" and "through"
-    (steps that take those branches)."""
+    (steps that take those branches). `lengths`, a list, gets the pair
+    steps of each live (cube, ray) as (cube i64[P], chart ray i64[P],
+    steps i32[P]) entries, one per step at which rays ended."""
     X, Y, Z = contents.shape
     dev = contents.device
     V = X * Y * Z
@@ -147,17 +249,18 @@ def relight_pass_plain(contents, light_rgb, face_rows, ctx, dyn=False, work=None
     tally: dict = {}
     slab = max(1, PLAIN_PAIRS // pairs.cosines.shape[0])
     for c0 in range(0, V, slab):
-        _plain_slab(contents, lp, face_rows, ctx, dyn, c0, min(V, c0 + slab), incoming, total, tally)
+        _plain_slab(contents, lp, face_rows, ctx, dyn, c0, min(V, c0 + slab), incoming, total, tally, lengths)
     if work is not None:
         for k, n in tally.items():
             work[k] = work.get(k, 0) + int(n)
     return incoming.reshape(X, Y, Z, 3), total.reshape(X, Y, Z)
 
 
-def _plain_slab(contents, lp, face_rows, ctx, dyn, c0, c1, incoming, total, tally):
+def _plain_slab(contents, lp, face_rows, ctx, dyn, c0, c1, incoming, total, tally, lengths):
     """`relight_pass_plain` over the cubes c0 <= c < c1 (flat index):
-    adds into `incoming` f32[V,3] and `total` f32[V], and the work by
-    branch into `tally`."""
+    adds into `incoming` f32[V,3] and `total` f32[V], the work by branch
+    into `tally`, and (cube, ray, steps) of the ended pairs to `lengths`
+    (a list, or None)."""
     X, Y, Z = contents.shape
     dev = contents.device
     V = X * Y * Z
@@ -244,6 +347,9 @@ def _plain_slab(contents, lp, face_rows, ctx, dyn, c0, c1, incoming, total, tall
         count("struck", struck.sum())
         count("through", through.sum())
 
+        if lengths is not None:
+            done = c_idx[ends]
+            lengths.append((done, r_idx[ends], torch.full_like(done, s + 1, dtype=torch.int32)))
         keep = ~ends
         c_idx, r_idx, w, alpha = c_idx[keep], r_idx[keep], w[keep], alpha[keep]
         cx, cy, cz = cx[keep], cy[keep], cz[keep]
@@ -251,46 +357,50 @@ def _plain_slab(contents, lp, face_rows, ctx, dyn, c0, c1, incoming, total, tall
 
 def _fn():
     lib = kernels.load_library("relight")
+    if lib.aic_relight_warps() != WARPS:
+        raise RuntimeError(f"csrc/relight.cu has {lib.aic_relight_warps()} warps a block, the ray deal {WARPS}")
     fn = lib.aic_relight_pass
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def relight_pass_cuda(contents, light_rgb, face_rows, ctx, dyn=False):
     """Launch `csrc/relight.cu` on the tensors' card; same contract as
-    `relight_pass_plain`."""
+    `relight_pass_plain`. `ctx.kernel` must be built from these contents
+    and face rows (`dense.build_relight_ctx` does so). An empty work list
+    launches nothing and gives zeros."""
     global LAUNCHES, LAUNCHES_DYN
     dev = contents.device
     X, Y, Z = contents.shape
-    V = X * Y * Z
-    p = ctx.pairs
+    p, kt = ctx.pairs, ctx.kernel
     R = p.cosines.shape[0]
-    N = p.face.shape[0]
+    n = kt.cubes.shape[0]
     req = kernels.require
     req(contents, "contents", torch.int32, (X, Y, Z), dev)
     req(light_rgb, "light_rgb", torch.float32, (X, Y, Z, 3), dev)
     req(face_rows, "face_rows", torch.float32, (face_rows.shape[0], 8), dev)
     req(ctx.dir_weights, "dir_weights", torch.float32, (X, Y, Z, 6), dev)
     req(ctx.alpha0, "alpha0", torch.float32, (X, Y, Z), dev)
-    req(ctx.origin_opaque, "origin_opaque", torch.bool, (X, Y, Z), dev)
-    req(p.sky_faces, "sky_faces", torch.float32, (6, 3), dev)
+    req(kt.face_mask, "face_mask", torch.uint8, (X + 2, Y + 2, Z + 2), dev)
+    req(kt.cubes, "cubes", torch.int32, (n,), dev)
     req(p.cosines, "cosines", torch.float32, (R, 6), dev)
     req(p.sky_ray, "sky_ray", torch.float32, (R, 3), dev)
     req(p.ray_start, "ray_start", torch.int32, (R + 1,), dev)
-    req(p.off, "pair_off", torch.int32, (N, 3), dev)
-    req(p.face, "pair_face", torch.int32, (N,), dev)
-    req(p.is_end, "pair_end", torch.uint8, (N,), dev)
-    incoming = torch.empty((X, Y, Z, 3), dtype=torch.float32, device=dev)
-    total = torch.empty((X, Y, Z), dtype=torch.float32, device=dev)
+    req(p.ray_id, "ray_id", torch.int32, (R,), dev)
+    req(p.words, "words", torch.int32, tuple(p.words.shape), dev)
+    req(p.warp_start, "warp_start", torch.int32, (WARPS + 1,), dev)
+    incoming = torch.zeros((X, Y, Z, 3), dtype=torch.float32, device=dev)
+    total = torch.zeros((X, Y, Z), dtype=torch.float32, device=dev)
+    if n == 0:
+        return incoming, total
     fn = _fn()
     ptr = kernels.ptr
     err = fn(
         ptr(contents), ptr(light_rgb), ptr(face_rows), ptr(ctx.dir_weights),
-        ptr(ctx.alpha0), ptr(ctx.origin_opaque), ptr(p.sky_faces), ptr(p.cosines),
-        ptr(p.sky_ray), ptr(p.ray_start), ptr(p.off), ptr(p.face), ptr(p.is_end),
-        ptr(incoming), ptr(total),
-        X, Y, Z, R, int(dyn),
+        ptr(ctx.alpha0), ptr(kt.face_mask), ptr(kt.cubes), ptr(p.cosines),
+        ptr(p.sky_ray), ptr(p.ray_start), ptr(p.ray_id), ptr(p.words), ptr(p.warp_start),
+        ptr(incoming), ptr(total), Y, Z, n, int(dyn),
         kernels.stream_ptr(dev),
     )
     if dyn:

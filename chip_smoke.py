@@ -10,17 +10,21 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    one process per source, all started together.
 3. kernels — each CUDA kernel against its plain PyTorch twin on the
    card: the relight pass (K2) in both variants on a small mixed scene,
-   cornell-box 16, the atrium and `plaza640` (full(ring only) +
-   light-only against the full pass), and the over-relaxed loop to
-   convergence on each; the traversal megakernel (K1) on small atom,
-   voxel and R32 scenes and on the atrium at 1920×1080; the v1 surface
+   cornell-box 16, the atrium and `plaza640` (two launches bit-equal,
+   full(ring only) + light-only against the full pass, the time beside
+   the one-thread-per-cube kernel's and the bound, the critical path of
+   both designs), on a state with no listed cube (zeros, no launch), and
+   the over-relaxed loop to convergence on each; the traversal
+   megakernel (K1) on small atom, voxel and R32 scenes and on the atrium
+   at 1920×1080; the v1 surface
    finder (K3) on the atom and voxel scenes (first launch, and the inner
    round) and on the atrium and `plaza640` 1920×1080 launch states. Then
    both trace paths on the same 1920×1080 rays, atrium and `plaza640`.
    Times at the main paths' shapes; bounds from the twins' work counts.
 4. slice   — the first main path at full size: atrium snapshot on the
    card, `evaluate_light_dense`, `render` at 1920×1080 with smooth
-   lighting (megakernel); launch counters, flaws, image checks.
+   lighting (megakernel); launch counters, flaws, image checks; the
+   relight one stage at a time.
 5. slice   — the second main path: `plaza640` (640×8×640, megakernel
    tables over budget) the same way, traced by the v1 kernel; PNGs of
    both frames under `aic_tpu_torch/_build/`. Then a plaza frame and the
@@ -59,13 +63,14 @@ PIXEL_MAX_SHARE = 1e-4
 #: Bounds: one H100 SXM's HBM rate and float32 rate outside the tensor
 #: cores (NVIDIA's data sheet), and each kernel's operations per unit of
 #: the work its plain twin counts on the same inputs (the twins' `work`),
-#: counted by hand from the CUDA sources along each branch: one per
-#: arithmetic, comparison, logic, shift, min/max, conversion or select,
-#: one per library call (floorf, fabsf, fmodf, sqrtf), table index
-#: arithmetic included; none for loads and stores (the bytes' side) or
-#: for a branch on a computed flag. All count at the f32 rate, the card's
-#: highest outside the tensor cores, so the bound stays a least time.
-#: PERF.md ("Operation counts") gives the derivation.
+#: counted by hand from the CUDA sources along each branch (K2's checked
+#: against its SASS): one per arithmetic, comparison, logic, shift,
+#: min/max, conversion or select, one per library call (floorf, fabsf,
+#: fmodf, sqrtf), table index arithmetic included; none for loads and
+#: stores (the bytes' side), register moves, a branch on a computed flag,
+#: or loop-invariant set-up on the uniform datapath. All count at the f32
+#: rate, the card's highest outside the tensor cores, so the bound stays a
+#: least time. PERF.md ("Operation counts") gives the derivation.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 OPS = {
@@ -78,11 +83,19 @@ OPS = {
         "outer_steps": 11, "tests": 38, "hits": 3,
     },
     "relight_pass": {
-        "weights": 16, "rays": 12, "steps": 22, "inside": 10, "visible": 6, "struck": 50, "through": 34,
+        "weights": 19, "rays": 12, "steps": 2, "inside": 10, "visible": 14, "struck": 25, "through": 15,
     },
     "relight_pass_dyn": {
-        "weights": 16, "rays": 1, "steps": 22, "inside": 10, "visible": 6, "struck": 47, "through": 31,
+        "weights": 19, "rays": 2, "steps": 2, "inside": 10, "visible": 14, "struck": 22, "through": 12,
     },
+}
+
+#: K2's time per pass in the one-thread-per-cube design that the current
+#: kernel replaced (PERF.md's kernel table, "earlier" column; NVIDIA H100
+#: 80GB HBM3, 700.00 W), printed beside this run's time as a constant.
+K2_EARLIER_MS = {
+    ("atrium", False): 8.560, ("atrium", True): 7.904,
+    ("plaza640", False): 8.255, ("plaza640", True): 7.787,
 }
 
 
@@ -187,8 +200,9 @@ def bound(kernel: str, nbytes_moved: int, work: dict) -> tuple[float, str]:
     """The least time of the card for this work, in ms, and what bounds
     it: the bytes moved once at the HBM rate, or the operations of the
     branches these inputs take (`OPS[kernel]` times the twin's `work`)
-    at the f32 rate."""
-    ops = sum(OPS[kernel][k] * n for k, n in work.items())
+    at the f32 rate. Only the branch counts that `OPS[kernel]` names
+    enter the sum."""
+    ops = sum(n * work.get(k, 0) for k, n in OPS[kernel].items())
     t_bytes = nbytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -214,11 +228,46 @@ def _fields_agree(out_k, out_p, fields, float_fields, label):
     return err
 
 
+def critical_path(ctx, lengths) -> tuple[int, int]:
+    """The longest serial chain of pair steps in each K2 design, from the
+    pair steps of each live (cube, chart ray) of the twin's walk (its
+    `lengths` list): one thread per cube walks all of its cube's steps
+    (max_cube_steps); a warp of the current kernel walks its share of the
+    rays for the 32 listed cubes of its block in step, each ray as long as
+    its longest lane (max_warp_steps)."""
+    import torch
+    from aic_tpu_torch.light import relight_kernel as rk
+
+    if not lengths:
+        return 0, 0
+    cube, ray, steps = (torch.cat(col) for col in zip(*lengths))
+    steps = steps.long()
+    dev = cube.device
+    V = ctx.alpha0.numel()
+    kt, p = ctx.kernel, ctx.pairs
+    R = p.cosines.shape[0]
+    per_cube = torch.zeros(V, dtype=torch.long, device=dev).index_add_(0, cube, steps)
+    tiles = -(-kt.cubes.numel() // rk.TILE)
+    tile = torch.zeros(V, dtype=torch.long, device=dev)
+    tile[kt.cubes.long()] = torch.arange(kt.cubes.numel(), device=dev) // rk.TILE
+    tile_ray = torch.zeros(tiles * R, dtype=torch.long, device=dev)
+    tile_ray.scatter_reduce_(0, tile[cube] * R + ray, steps, "amax")
+    warp = torch.empty(R, dtype=torch.long, device=dev)
+    warp[p.ray_id.long()] = torch.repeat_interleave(
+        torch.arange(rk.WARPS, device=dev), torch.diff(p.warp_start).long())
+    per_warp = torch.zeros((tiles, rk.WARPS), dtype=torch.long, device=dev)
+    per_warp.index_add_(1, warp, tile_ray.reshape(tiles, R))
+    return int(per_cube.max()), int(per_warp.max())
+
+
 def compare_relight(state, label):
     """K2 against its plain twin on one state (seeded light), both
-    variants, and full(ring only) + light-only(light) against the full
-    pass. Returns {kernel name: (max abs err, kernel ms, plain ms, bound
-    ms, bound by)}."""
+    variants: within one packed step, two launches bit-equal; then
+    full(ring only) + light-only(light) against the full pass. Prints the
+    kernel's time beside the one-thread-per-cube kernel's
+    (`K2_EARLIER_MS`) and the bound, and the critical path of both
+    designs from the twin's walk. Returns {kernel name: (max abs err,
+    kernel ms, plain ms, bound ms, bound by)}."""
     import torch
     from aic_tpu_torch.light import dense
     from aic_tpu_torch.light import relight_kernel as rk
@@ -243,28 +292,40 @@ def compare_relight(state, label):
         return step
 
     # Inputs read once; outputs incoming f32[V,3] and total f32[V].
-    moved = nbytes(state.contents, light_rgb, rows, ctx.dir_weights, ctx.alpha0,
-                   ctx.origin_opaque, p.sky_faces, p.cosines, p.sky_ray, p.ray_start,
-                   p.off, p.face, p.is_end) + state.contents.numel() * 16
+    kt = ctx.kernel
+    moved = nbytes(state.contents, light_rgb, rows, ctx.dir_weights, ctx.alpha0, kt.face_mask,
+                   kt.cubes, p.cosines, p.sky_ray, p.ray_start, p.ray_id,
+                   p.words, p.warp_start) + state.contents.numel() * 16
     out = {}
     for dyn in (False, True):
+        variant = " light-only" if dyn else ""
         args = (state.contents, light_rgb, rows, ctx)
         inc_k, tot_k = rk.relight_pass_cuda(*args, dyn=dyn)
+        inc_k2, tot_k2 = rk.relight_pass_cuda(*args, dyn=dyn)
         work: dict = {}
-        inc_p, tot_p = rk.relight_pass_plain(*args, dyn=dyn, work=work)
+        lengths: list = []
+        inc_p, tot_p = rk.relight_pass_plain(*args, dyn=dyn, work=work, lengths=lengths)
+        max_cube, max_warp = critical_path(ctx, lengths)
+        del lengths
         torch.cuda.synchronize()
-        step = within_step(packed(inc_k, tot_k), packed(inc_p, tot_p), "kernel vs plain"
-                           + (" (light-only)" if dyn else ""))
+        if not (torch.equal(inc_k, inc_k2) and torch.equal(tot_k, tot_k2)):
+            fail(f"relight{variant} on {label}: two launches on the same inputs differ")
+        step = within_step(packed(inc_k, tot_k), packed(inc_p, tot_p), f"kernel vs plain{variant}")
         err = max(float((inc_k - inc_p).abs().max()), float((tot_k - tot_p).abs().max()))
         ms_k = cuda_ms(lambda: rk.relight_pass_cuda(*args, dyn=dyn), 20)
         ms_p = cuda_ms(lambda: rk.relight_pass_plain(*args, dyn=dyn), 2)
         name = "relight_pass_dyn" if dyn else "relight_pass"
         b_ms, b_by = bound(name, moved, work)
         out[name] = (err, ms_k, ms_p, b_ms, b_by)
-        phase("kernels", f"relight{' light-only' if dyn else ''} {label} "
-              f"{tuple(state.contents.shape)}: packed diff {step}, max abs err {err:.3e}, "
-              f"kernel {ms_k:.3f} ms plain {ms_p:.3f} ms, work {work}, "
-              f"bound {b_ms:.4f} ms ({b_by})")
+        earlier = K2_EARLIER_MS.get((label, dyn))
+        earlier = f"{earlier:.3f} ms (constant, PERF.md)" if earlier else "not measured"
+        phase("kernels", f"relight{variant} {label} {tuple(state.contents.shape)}: packed diff {step}, "
+              f"max abs err {err:.3e}, two launches bit-equal; kernel {ms_k:.3f} ms "
+              f"(one thread per cube: {earlier}) plain {ms_p:.3f} ms; bound {b_ms:.4f} ms ({b_by}), "
+              f"{b_ms / ms_k:.1%} of it; {kt.cubes.numel()} listed cubes in "
+              f"{-(-kt.cubes.numel() // rk.TILE)} blocks; critical path: "
+              f"max_cube_steps {max_cube}, max_warp_steps {max_warp}; "
+              f"work {work}")
     full_inc, full_tot = rk.relight_pass_cuda(state.contents, light_rgb, rows, ctx)
     st_inc, st_tot = rk.relight_pass_cuda(state.contents, zero, rows, ctx)
     dyn_inc, _ = rk.relight_pass_cuda(state.contents, light_rgb, rows, ctx, dyn=True)
@@ -275,6 +336,35 @@ def compare_relight(state, label):
     phase("kernels", f"relight {label}: full(ring only) + light-only vs full pass: packed diff "
           f"{step}, max abs err {float((st_inc + dyn_inc - full_inc).abs().max()):.3e}")
     return out
+
+
+def check_empty_work_list(pkg, dev):
+    """A state whose every cube is opaque lists no cube: both variants
+    give zeros, launch nothing, and nothing faults."""
+    import torch
+    from aic_tpu_torch.light import dense
+    from aic_tpu_torch.light import relight_kernel as rk
+    from aic_tpu_torch.math import lightpack
+
+    block, GridAab, Space, _Sky, _SpacePhysics = pkg
+    box = GridAab.from_lower_size((0, 0, 0), (9, 7, 5))
+    sp = Space(box)
+    sp.fill(box, block.from_color((0.5, 0.5, 0.5, 1.0)))
+    state = sp.snapshot(device=dev)
+    ctx = dense.build_relight_ctx(state)
+    if ctx.kernel.cubes.numel() != 0:
+        fail(f"all-opaque state: {ctx.kernel.cubes.numel()} listed cubes")
+    light_rgb = lightpack.decode_rgb(state.light).contiguous()
+    before = (rk.LAUNCHES, rk.LAUNCHES_DYN)
+    for dyn in (False, True):
+        inc, tot = rk.relight_pass_cuda(state.contents, light_rgb, state.tables.light_face_rows, ctx, dyn=dyn)
+        torch.cuda.synchronize()
+        if bool(inc.any()) or bool(tot.any()):
+            fail(f"all-opaque state: the{' light-only' if dyn else ''} pass is not zero")
+    if (rk.LAUNCHES, rk.LAUNCHES_DYN) != before:
+        fail("all-opaque state: the relight kernel was launched with an empty work list")
+    phase("kernels", f"relight all-opaque {tuple(state.contents.shape)}: empty work list, both variants zero, "
+          "no launch")
 
 
 def compare_converge(space, label, dev):
@@ -456,6 +546,41 @@ def v1_launch_ms(fn) -> list:
     return [a.elapsed_time(b) for a, b in events]
 
 
+def stage(stages: dict, name: str, fn):
+    """Run `fn` once between two synchronizations; its host-clock ms go
+    into `stages[name]`. Returns what `fn` returns."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    stages[name] = round((time.perf_counter() - t0) * 1e3, 3)
+    return out
+
+
+def relight_stages(space, lit, dev) -> dict:
+    """The main path's relight one stage at a time (ms, one synchronized
+    call each, host clock): seed, context, the convergence loop, and one
+    pass of each variant over the converged light."""
+    from aic_tpu_torch.light import dense
+    from aic_tpu_torch.light import relight_kernel as rk
+    from aic_tpu_torch.light.refproc import fast_evaluate_seed
+    from aic_tpu_torch.math import lightpack
+
+    stages: dict = {}
+    snap = space.snapshot(device=dev)
+    seeded, _ = stage(stages, "relight_seed", lambda: fast_evaluate_seed(snap))
+    ctx = stage(stages, "relight_ctx", lambda: dense.build_relight_ctx(seeded))
+    _, passes = stage(stages, "relight_passes", lambda: dense.converge(seeded, ctx, overrelax=dense.OVERRELAX))
+    stages["passes_run"] = passes
+    lrgb = lightpack.decode_rgb(lit.light).contiguous()
+    rows = lit.tables.light_face_rows
+    stage(stages, "relight_pass_full", lambda: rk.relight_pass_cuda(lit.contents, lrgb, rows, ctx))
+    stage(stages, "relight_pass_dyn", lambda: rk.relight_pass_cuda(lit.contents, lrgb, rows, ctx, dyn=True))
+    return stages
+
+
 def check_frame(frame, state, label):
     if frame.flaws:
         fail(f"{label}: render flaws {frame.flaws}")
@@ -485,11 +610,9 @@ def main() -> None:
         fail(f"the aic_tpu_torch package is not beside chip_smoke.py ({e})")
     from aic_tpu_torch import block, kernels
     from aic_tpu_torch.content import atrium, cornell_box, plaza
-    from aic_tpu_torch.light import dense, evaluate_light_dense
+    from aic_tpu_torch.light import evaluate_light_dense
     from aic_tpu_torch.light import relight_kernel as rk
-    from aic_tpu_torch.light.refproc import fast_evaluate_seed
     from aic_tpu_torch.main import default_camera
-    from aic_tpu_torch.math import lightpack
     from aic_tpu_torch.math.grid import GridAab
     from aic_tpu_torch.raytrace import GraphicsOptions, accel, render, save_png
     from aic_tpu_torch.raytrace import trace_kernel as tk
@@ -512,7 +635,7 @@ def main() -> None:
     for name in names:
         kernels.load_library(name)
     regs = {
-        n: [ln.strip() for ln in info[1].splitlines() if "registers" in ln]
+        n: [ln.strip() for ln in info[1].splitlines() if "registers" in ln or "spill" in ln]
         for n, info in kernels.BUILD_INFO.items()
     }
     phase("build", f"{' + '.join(names)} built in {time.perf_counter() - t0:.1f} s; ptxas: {regs}")
@@ -522,6 +645,7 @@ def main() -> None:
     small = {"mixed 12^3": relight_scene(pkg), "cornell-box 16": cornell_box(16)}
     for label, sp in small.items():
         compare_relight(sp.snapshot(device=dev), label)
+    check_empty_work_list(pkg, dev)
     scenes = trace_scenes(pkg)
     for label, sp in scenes.items():
         o, d = random_rays(4096, -4.0, 24.0, seed=len(label))
@@ -598,6 +722,7 @@ def main() -> None:
     save_png(frame, os.path.join(HERE, "aic_tpu_torch", "_build", "atrium_1080p.png"))
     phase("slice", f"atrium 1920x1080 smoothstep: {frame_ms:.1f} ms/frame warm "
           f"({1920 * 1080 / frame_ms / 1e3:.2f} Mrays/s), alpha coverage {coverage:.3f}")
+    phase("slice", f"atrium relight stages (ms): {relight_stages(atrium_space, state, dev)}")
     del state
 
     # 5. the second main path: plaza640, through the v1 kernel
@@ -622,38 +747,22 @@ def main() -> None:
           f"(rounds x phases), alpha coverage {coverage:.3f}")
 
     # Where a plaza frame's time goes, one stage at a time.
-    stages = {}
-
-    def stage(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        stages[name] = round((time.perf_counter() - t0) * 1e3, 3)
-        return out
-
-    po, pd = stage("pixel_rays", lambda: plaza_cam.pixel_rays(device=dev))
-    light, trans, _ = stage("trace", lambda: tk.trace_rays_kernel(state, po, pd, plaza_cam.options))
-    img = stage("finish", lambda: finish_frame(light, trans, float(plaza_cam.exposure), plaza_cam.options))
-    stage("to_host", lambda: img.cpu())
+    stages: dict = {}
+    po, pd = stage(stages, "pixel_rays", lambda: plaza_cam.pixel_rays(device=dev))
+    light, trans, _ = stage(stages, "trace", lambda: tk.trace_rays_kernel(state, po, pd, plaza_cam.options))
+    img = stage(stages, "finish", lambda: finish_frame(light, trans, float(plaza_cam.exposure), plaza_cam.options))
+    stage(stages, "to_host", lambda: img.cpu())
     # The snapshot's packed cells (skip field included) and the relight's
     # set-up apart from its passes.
-    snap = stage("snapshot", lambda: plaza_space.snapshot(device=dev))
+    snap = stage(stages, "snapshot", lambda: plaza_space.snapshot(device=dev))
     tb = snap.tables
     vis, vidx, rl2 = (x.cpu().numpy() for x in (tb.visible, tb.voxel_index, tb.res_log2))
     contents_np = plaza_space.contents.astype(np.int32)
-    stage("snapshot_skip_field", lambda: accel.np_skip_distance_field(vis[contents_np]))
-    stage("snapshot_space_cells", lambda: accel.build_trace_cells(
+    stage(stages, "snapshot_skip_field", lambda: accel.np_skip_distance_field(vis[contents_np]))
+    stage(stages, "snapshot_space_cells", lambda: accel.build_trace_cells(
         contents_np, vis, vidx >= 0, rl2, payload=accel.cell_payload(vidx)))
-    seeded, _ = stage("relight_seed", lambda: fast_evaluate_seed(snap))
-    rctx = stage("relight_ctx", lambda: dense.build_relight_ctx(seeded))
-    _, conv_passes = stage("relight_passes", lambda: dense.converge(seeded, rctx, overrelax=dense.OVERRELAX))
-    lrgb = lightpack.decode_rgb(state.light).contiguous()
-    rows_ = state.tables.light_face_rows
-    stage("relight_pass_full", lambda: rk.relight_pass_cuda(state.contents, lrgb, rows_, rctx))
-    stage("relight_pass_dyn", lambda: rk.relight_pass_cuda(state.contents, lrgb, rows_, rctx, dyn=True))
-    phase("slice", f"plaza640 stages (ms, one each, synchronized; relight_passes ran "
-          f"{conv_passes}): {stages}")
+    stages.update(relight_stages(plaza_space, state, dev))
+    phase("slice", f"plaza640 stages (ms, one each, synchronized): {stages}")
     launch_ms = v1_launch_ms(lambda: render(state, plaza_cam))
     phase("slice", f"plaza640 K3 launches of one warm frame (CUDA events, ms): "
           f"{[round(x, 3) for x in launch_ms]}, sum {sum(launch_ms):.3f}")

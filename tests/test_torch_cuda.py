@@ -190,3 +190,50 @@ def test_small_atrium_frame_matches_cpu(cuda_device):
     np.testing.assert_allclose(gt.cpu().numpy(), ct.numpy(), atol=2e-3)
     frame = render(lit, cam)
     assert frame.flaws == () and (frame.data[..., 3] > 0).mean() > 0.5
+
+
+def _relight_args(space, device):
+    st, _ = fast_evaluate_seed(space.snapshot(device=device))
+    ctx = dense.build_relight_ctx(st)
+    return ctx, (st.contents, lightpack.decode_rgb(st.light).contiguous(), st.tables.light_face_rows, ctx)
+
+
+@pytest.mark.parametrize("dyn", [False, True])
+def test_relight_two_launches_bit_equal(cuda_device, dyn):
+    """The warps' partial sums are added in a fixed order: two launches on
+    the same inputs give the same bits."""
+    _ctx, args = _relight_args(chip_smoke.relight_scene(PKG), cuda_device)
+    a = relight_kernel.relight_pass_cuda(*args, dyn=dyn)
+    b = relight_kernel.relight_pass_cuda(*args, dyn=dyn)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_relight_all_opaque_gives_zeros(cuda_device):
+    """No listed cube: zeros in both variants, and no launch."""
+    box = GridAab.from_lower_size((0, 0, 0), (9, 7, 5))
+    space = Space(box)
+    space.fill(box, block.from_color((0.5, 0.5, 0.5, 1.0)))
+    ctx, args = _relight_args(space, cuda_device)
+    assert ctx.kernel.cubes.numel() == 0
+    before = (relight_kernel.LAUNCHES, relight_kernel.LAUNCHES_DYN)
+    for dyn in (False, True):
+        inc, tot = relight_kernel.relight_pass(*args, dyn=dyn)
+        torch.cuda.synchronize()
+        assert not bool(inc.any()) and not bool(tot.any())
+    assert (relight_kernel.LAUNCHES, relight_kernel.LAUNCHES_DYN) == before
+
+
+@pytest.mark.parametrize("dyn", [False, True])
+def test_relight_long_open_rays_match_plain(cuda_device, dyn):
+    """`light_max_distance` 40 in a 10³ volume: rays run to the volume's
+    edge and end on the mask's padding. Within one packed step of the twin,
+    statuses equal."""
+    ctx, args = _relight_args(chip_smoke.relight_scene(PKG, size=(10, 10, 10), md=40), cuda_device)
+    inc_k, tot_k = relight_kernel.relight_pass(*args, dyn=dyn)
+    inc_p, tot_p = relight_kernel.relight_pass_plain(*args, dyn=dyn)
+    if dyn:  # the light-only pass has no total: judge it beside the twin's static terms
+        static, tot_p = relight_kernel.relight_pass_plain(args[0], torch.zeros_like(args[1]), *args[2:])
+        inc_k, inc_p, tot_k = inc_k + static, inc_p + static, tot_p
+    pk, pp = _packed(ctx, inc_k, tot_k), _packed(ctx, inc_p, tot_p)
+    assert np.abs(pk[..., :3] - pp[..., :3]).max() <= 1
+    np.testing.assert_array_equal(pk[..., 3], pp[..., 3])

@@ -25,6 +25,8 @@ split is checked against the full pass to f32 summation tolerance.
 
 import dataclasses
 import functools
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,9 +38,12 @@ from aic_tpu.light.refproc import fast_evaluate_seed as jseed
 from aic_tpu_torch.light import dense as tdense
 from aic_tpu_torch.light import relight_kernel
 from aic_tpu_torch.light.refproc import fast_evaluate_seed as tseed
-from aic_tpu_torch.math import lightpack
+from aic_tpu_torch.math import faces, lightpack
 from test_pallas_relight import _scene
 from test_torch_state import PKGS, to_port
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the critical path of the kernel designs)
 
 SCENES = {
     "mixed12": lambda: _scene((12, 12, 12), md=8),
@@ -114,20 +119,28 @@ def test_seed_matches():
 
 
 def test_pair_tables_layouts_agree():
-    """The kernel's flat pair list with per-ray ranges and the plain
-    version's per-(ray, step) tables hold the same pairs."""
+    """The plain version's per-(ray, step) tables hold the chart's pairs
+    ray by ray, and the kernel's packed words with per-ray ranges hold the
+    same pairs, each dealt ray those of the chart ray `ray_id` names."""
     tst = to_port(_scene((10, 10, 10), md=8))
     p = tdense.build_relight_ctx(tst).pairs
     ch = tdense._pair_tables(8, (10, 10, 10))
     starts = p.ray_start.numpy()
     assert starts[-1] == len(ch["face"]) and (np.diff(starts) >= 1).all()
+    off, face, is_end = _decode_words(p.words.numpy())
     for r in (0, 17, len(starts) - 2):
-        lo, hi = starts[r], starts[r + 1]
-        n = hi - lo
-        np.testing.assert_array_equal(p.step_off[r, :n].numpy(), ch["off"][lo:hi])
-        np.testing.assert_array_equal(p.step_face[r, :n].numpy(), ch["face"][lo:hi])
-        np.testing.assert_array_equal(p.step_end[r, :n].numpy(), ch["is_end"][lo:hi])
-        assert ch["is_end"][hi - 1] and ch["ray_new"][lo]
+        rc = int(p.ray_id[r])
+        chart = np.flatnonzero(ch["ray_id"] == rc)
+        lo, hi, n = starts[r], starts[r + 1], len(chart)
+        assert hi - lo == n
+        np.testing.assert_array_equal(p.cosines[rc].numpy(), ch["cosines"][rc])
+        for got in (off[lo:hi], p.step_off[rc, :n].numpy()):
+            np.testing.assert_array_equal(got, ch["off"][chart])
+        for got in (face[lo:hi], p.step_face[rc, :n].numpy()):
+            np.testing.assert_array_equal(got, ch["face"][chart])
+        for got in (is_end[lo:hi], p.step_end[rc, :n].numpy()):
+            np.testing.assert_array_equal(got, ch["is_end"][chart])
+        assert ch["is_end"][chart[-1]] and ch["ray_new"][chart[0]]
 
 
 def test_evaluate_light_dense_matches():
@@ -227,3 +240,167 @@ def test_overrelax_keeps_plain_output_near_convergence():
     assert torch.equal(tdense._overrelax(tst.light, new, 4, 1.3), new)
     far = tdense._overrelax(tst.light, new, 5, 1.3)
     assert torch.equal(far[..., 3], new[..., 3])
+
+
+# -- the CUDA kernel's tables, held against what they replace ----------------
+#
+# The kernel walks a work list of cubes, reads a one-byte visibility mask
+# where the one-thread-per-cube kernel read contents and a face row and
+# tested the volume's bounds, and reads one packed word per pair where it
+# read three tables.
+
+
+def _decode_words(words):
+    """(off i64[N,3], face i64[N], is_end bool[N]) of `pack_pair_words`,
+    whose last two words are pads of 0."""
+    assert not words[-2:].any()
+    w = np.asarray(words[:-2]).astype(np.int64)
+    off = np.stack([(((w >> s) & 0xFF) ^ 0x80) - 0x80 for s in (0, 8, 16)], -1)
+    return off, (w >> 24) & 7, ((w >> 27) & 1).astype(bool)
+
+
+@pytest.mark.parametrize("name", ["atrium_small", "md_exceeds_volume", "mixed12", "non_pow2"])
+def test_work_list_is_walked_cubes_with_weight(name):
+    """The listed cubes are the cubes `_run_pairs` walks (alpha0 > 0, not
+    an opaque origin) that have any direction weight, in index order."""
+    _st, jctx, tst = _seeded(name)
+    want = np.flatnonzero(
+        (np.asarray(jctx.alpha0) > 0) & ~np.asarray(jctx.origin_opaque)
+        & (np.asarray(jctx.dir_weights) > 0).any(-1)
+    )
+    kt = tdense.build_relight_ctx(tst).kernel
+    np.testing.assert_array_equal(kt.cubes.numpy(), want)
+
+
+@pytest.mark.parametrize("name", ["atrium_small", "mixed12", "non_pow2"])
+def test_face_mask_is_face_visibility(name):
+    """Inside the one-cube padding, bit f of the mask is face_rows[6 *
+    contents + f, 4] >= 2 of `aic_tpu`'s tables; the padding carries only
+    MASK_OUTSIDE."""
+    st, _jctx, tst = _seeded(name)
+    rows = np.asarray(st.tables.light_face_rows)
+    contents = np.asarray(st.contents).astype(np.int64)
+    X, Y, Z = contents.shape
+    mask = tdense.build_relight_ctx(tst).kernel.face_mask.numpy()
+    assert mask.shape == (X + 2, Y + 2, Z + 2)
+    inner = mask[1:-1, 1:-1, 1:-1]
+    for f in range(6):
+        np.testing.assert_array_equal((inner >> f) & 1, rows[6 * contents + f, 4] >= 2.0)
+    assert not (inner & relight_kernel.MASK_OUTSIDE).any()
+    pad = np.ones(mask.shape, bool)
+    pad[1:-1, 1:-1, 1:-1] = False
+    assert (mask[pad] == relight_kernel.MASK_OUTSIDE).all()
+
+
+@pytest.mark.parametrize("md,size", [(6, (8, 8, 8)), (8, (12, 12, 12)), (40, (10, 10, 10)), (60, (60, 35, 40))])
+def test_pair_words_decode_to_pair_tables(md, size):
+    """The packed words decode to `aic_tpu`'s pair offsets, faces and end
+    flags exactly, ray by ray in the order the kernel's warps walk them
+    (`ray_id`); the deal gives every ray to one warp, in chart order
+    within a warp, the warps' chart lengths within one longest ray."""
+    ch = jdense._pair_tables(md, size)
+    dealt = tdense._dealt_pair_tables(md, size)
+    ray_id, starts = dealt["ray_id"], dealt["warp_start"]
+    chart = np.concatenate([np.flatnonzero(ch["ray_id"] == r) for r in ray_id])
+    off, face, is_end = _decode_words(dealt["words"])
+    np.testing.assert_array_equal(off, ch["off"][chart])
+    np.testing.assert_array_equal(face, ch["face"][chart])
+    np.testing.assert_array_equal(is_end, ch["is_end"][chart])
+    n_rays = len(ch["cosines"])
+    np.testing.assert_array_equal(np.sort(ray_id), np.arange(n_rays))
+    assert starts[0] == 0 and starts[-1] == n_rays and len(starts) == relight_kernel.WARPS + 1
+    lengths = np.diff(dealt["ray_start"])
+    np.testing.assert_array_equal(lengths, np.bincount(ch["ray_id"], minlength=n_rays)[ray_id])
+    loads = [lengths[a:b].sum() for a, b in zip(starts[:-1], starts[1:])]
+    assert max(loads) - min(loads) <= lengths.max()
+    for a, b in zip(starts[:-1], starts[1:]):
+        assert (np.diff(ray_id[a:b]) > 0).all()
+
+
+@pytest.mark.parametrize("md,size", [(6, (8, 8, 8)), (8, (12, 12, 12)), (40, (10, 10, 10)), (60, (60, 35, 40))])
+def test_chart_rays_step_one_cube_through_their_face(md, size):
+    """What the kernel's walk rests on, held on `aic_tpu`'s pair tables:
+    every pair that does not end its ray lies one cube from the previous
+    pair of its ray (or the origin), entered through its face, so a ray
+    leaving the volume lands on the mask's one-cube padding; every ray
+    ends at its last pair and at no pair before; offsets fit in i8."""
+    ch = jdense._pair_tables(md, size)
+    normals = np.asarray(faces.FACE_NORMALS[:6], np.int64)
+    assert np.abs(ch["off"]).max() <= 127
+    for r in range(len(ch["cosines"])):
+        pairs = np.flatnonzero(ch["ray_id"] == r)
+        assert (np.diff(pairs) == 1).all() and ch["ray_new"][pairs[0]]
+        end = ch["is_end"][pairs]
+        assert end[-1] and not end[:-1].any()
+        off = ch["off"][pairs].astype(np.int64)
+        prev = np.concatenate([np.zeros((1, 3), np.int64), off[:-1]])
+        np.testing.assert_array_equal((off - prev)[:-1], -normals[ch["face"][pairs]][:-1])
+
+
+def _bad_tables(case):
+    ch = dict(jdense._pair_tables(6, (8, 8, 8)))
+    ch["off"], ch["face"], ch["is_end"] = ch["off"].copy(), ch["face"].copy(), ch["is_end"].copy()
+    if case == "wrong_face":
+        ch["face"][0] = (ch["face"][0] + 1) % 6
+    elif case == "offset_past_i8":
+        ch["off"][0, 0] = 128
+    else:  # "ray_without_end"
+        ch["is_end"][np.flatnonzero(ch["ray_id"] == 3)[-1]] = False
+    return ch
+
+
+@pytest.mark.parametrize("case", ["wrong_face", "offset_past_i8", "ray_without_end"])
+def test_kernel_tables_refuse_a_chart_they_cannot_walk(case):
+    """Building the kernel's tables checks the chart properties the walk
+    needs and raises where one fails."""
+    with pytest.raises(ValueError):
+        relight_kernel.deal_pair_tables(_bad_tables(case))
+
+
+@pytest.mark.parametrize("dyn", [False, True])
+def test_plain_pass_does_not_follow_the_deal(monkeypatch, dyn):
+    """The plain pass reads the chart-order tables only: dealing the rays
+    over another number of warps leaves its result bit for bit."""
+    _st, _jctx, tst = _seeded("mixed12")
+    ctx = tdense.build_relight_ctx(tst)
+    md, size = tst.light_max_distance, tuple(tst.contents.shape)
+    ch = tdense._pair_tables(md, size)
+    monkeypatch.setattr(relight_kernel, "WARPS", 3)
+    other = dataclasses.replace(ctx, pairs=relight_kernel.PairTables.from_numpy(
+        ch, relight_kernel.deal_pair_tables(ch), ctx.pairs.sky_faces))
+    assert not torch.equal(other.pairs.ray_id, ctx.pairs.ray_id)
+    args = (tst.contents, lightpack.decode_rgb(tst.light).contiguous(), tst.tables.light_face_rows)
+    a = relight_kernel.relight_pass_plain(*args, ctx, dyn=dyn)
+    b = relight_kernel.relight_pass_plain(*args, other, dyn=dyn)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_all_opaque_state_lists_no_cube():
+    """A state whose every cube is opaque walks no cube: an empty work
+    list; the pass gives zeros."""
+    jx = PKGS["jax"]
+    sp = jx.Space(jx.GridAab.from_lower_size((0, 0, 0), (6, 5, 7)))
+    sp.fill(jx.GridAab.from_lower_size((0, 0, 0), (6, 5, 7)), jx.block.from_color((0.5, 0.5, 0.5, 1.0)))
+    tst = to_port(sp.snapshot())
+    ctx = tdense.build_relight_ctx(tst)
+    assert ctx.kernel.cubes.numel() == 0
+    inc, tot = relight_kernel.relight_pass(tst.contents, lightpack.decode_rgb(tst.light), tst.tables.light_face_rows, ctx)
+    assert not bool(inc.any()) and not bool(tot.any())
+
+
+def test_critical_path_counts():
+    """The plain pass reports each live (cube, ray)'s pair steps, which
+    add up to its step count; from them, the serial chains of both kernel
+    designs: the longest cube's pair steps, and the longest warp share
+    (each ray as long as the longest of its block's 32 lanes), which the
+    split across warps makes shorter."""
+    _st, _jctx, tst = _seeded("mixed12")
+    ctx = tdense.build_relight_ctx(tst)
+    work: dict = {}
+    lengths: list = []
+    relight_kernel.relight_pass_plain(tst.contents, lightpack.decode_rgb(tst.light), tst.tables.light_face_rows,
+                                      ctx, work=work, lengths=lengths)
+    cube, ray, steps = (torch.cat(col) for col in zip(*lengths))
+    assert len(cube) == len(ray) == work["rays"] and int(steps.sum()) == work["steps"]
+    max_cube, max_warp = chip_smoke.critical_path(ctx, lengths)
+    assert 0 < max_warp < max_cube <= work["steps"]
