@@ -98,6 +98,41 @@ RAY_FIELDS = ("ox", "oy", "oz", "dx", "dy", "dz", "ivx", "ivy", "ivz", "stx", "s
 
 
 @dataclass(frozen=True)
+class PackedRays:
+    """The 12 per-ray constants as the kernels read them, packed once per
+    `trace_rays_kernel` call: f32[9, m] (origin, direction, inverse
+    direction) and i32[3, m] (step)."""
+
+    f: torch.Tensor
+    i: torch.Tensor
+
+    @staticmethod
+    def pack(rays: dict) -> "PackedRays":
+        return PackedRays(
+            torch.stack([rays[k] for k in RAY_FIELDS[:9]]),
+            torch.stack([rays[k] for k in RAY_FIELDS[9:]]),
+        )
+
+    def take(self, idx: torch.Tensor) -> "PackedRays":
+        """The rays `idx` (i64[n]), packed the same way."""
+        return PackedRays(self.f[:, idx], self.i[:, idx])
+
+    def fields(self) -> dict:
+        """The 12 constants by name (row views)."""
+        return dict(zip(RAY_FIELDS, [*self.f, *self.i]))
+
+
+def pack_fields(st: dict, fields, float_fields) -> torch.Tensor:
+    """Per-ray fields → one i32[len(fields), m] buffer (floats bit-cast)."""
+    return torch.stack([st[k].view(torch.int32) if k in float_fields else st[k] for k in fields])
+
+
+def unpack_fields(buf: torch.Tensor, fields, float_fields) -> dict:
+    """The inverse of `pack_fields`: row views by name."""
+    return {k: (buf[i].view(torch.float32) if k in float_fields else buf[i]) for i, k in enumerate(fields)}
+
+
+@dataclass(frozen=True)
 class BitmaskCtx2:
     """Megakernel tables; u32 words are held as int32 (see state.py)."""
 
@@ -569,20 +604,16 @@ def _fn():
     return fn
 
 
-def megakernel_cuda(rays: dict, st: dict, ctx: BitmaskCtx2) -> dict:
-    """Launch `csrc/trace.cu` once over all rays; same contract as
-    `megakernel_plain`."""
+def launch_megakernel(rays: PackedRays, st_in: torch.Tensor, ctx: BitmaskCtx2) -> torch.Tensor:
+    """Launch `csrc/trace.cu` once over all rays on packed inputs (the
+    state as `pack_fields(st, STATE_FIELDS, FLOAT_FIELDS)`); returns the
+    packed i32[28, m] state it leaves."""
     global LAUNCHES
     dev = ctx.rows.device
-    m = rays["ox"].shape[0]
-    ray_f = torch.stack([rays[k] for k in RAY_FIELDS[:9]]).contiguous()
-    ray_i = torch.stack([rays[k] for k in RAY_FIELDS[9:]]).contiguous()
-    st_in = torch.stack(
-        [st[k].view(torch.int32) if k in FLOAT_FIELDS else st[k] for k in STATE_FIELDS]
-    ).contiguous()
+    m = rays.f.shape[1]
     req = kernels.require
-    req(ray_f, "rays", torch.float32, (9, m), dev)
-    req(ray_i, "ray steps", torch.int32, (3, m), dev)
+    req(rays.f, "rays", torch.float32, (9, m), dev)
+    req(rays.i, "ray steps", torch.int32, (3, m), dev)
     req(st_in, "state", torch.int32, (len(STATE_FIELDS), m), dev)
     req(ctx.l1, "l1", torch.int32, (1, 128), dev)
     req(ctx.rows, "rows", torch.int32, (ctx.rows.shape[0], 128), dev)
@@ -594,7 +625,7 @@ def megakernel_cuda(rays: dict, st: dict, ctx: BitmaskCtx2) -> dict:
     ptr = kernels.ptr
     null = ctypes.c_void_p(0)
     err = _fn()(
-        ptr(ray_f), ptr(ray_i), ptr(st_in), ptr(st_out), ptr(ctx.l1), ptr(ctx.rows),
+        ptr(rays.f), ptr(rays.i), ptr(st_in), ptr(st_out), ptr(ctx.l1), ptr(ctx.rows),
         ptr(ctx.page_idx) if has_vox else null, ptr(ctx.pages) if has_vox else null,
         m, MAX_ITERS, SUBSTEPS, ctx.n_regions, ctx.rows.shape[0],
         ctx.size[0], ctx.size[1], ctx.size[2], ctx.rdims[1], ctx.rdims[2],
@@ -603,10 +634,14 @@ def megakernel_cuda(rays: dict, st: dict, ctx: BitmaskCtx2) -> dict:
     )
     LAUNCHES += 1
     kernels.check_launch(err, "trace megakernel")
-    return {
-        k: (st_out[i].view(torch.float32) if k in FLOAT_FIELDS else st_out[i])
-        for i, k in enumerate(STATE_FIELDS)
-    }
+    return st_out
+
+
+def megakernel_cuda(rays: dict, st: dict, ctx: BitmaskCtx2) -> dict:
+    """Pack, then launch `csrc/trace.cu` once over all rays; same contract
+    as `megakernel_plain`."""
+    st_in = pack_fields(st, STATE_FIELDS, FLOAT_FIELDS)
+    return unpack_fields(launch_megakernel(PackedRays.pack(rays), st_in, ctx), STATE_FIELDS, FLOAT_FIELDS)
 
 
 def run_megakernel(rays: dict, st: dict, ctx: BitmaskCtx2) -> dict:

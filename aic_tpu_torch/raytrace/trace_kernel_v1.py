@@ -13,7 +13,7 @@ then one per voxel entry at its native edge (R ≤ 16), and the L1 row of
 region bits.
 
 Classification, voxel-grid entry and the pop back to the outer registers
-stay between launches, in PyTorch (`advance`, the glue of
+stay between launches, in PyTorch (`advance_packed`, the glue of
 `_trace_pallas_impl`): an atom ends the ray; a voxel block saves the outer
 registers and enters the block's grid one voxel early with a 1e-4/|d|
 nudge; `INNER_EXIT` restores them. The glue reads each hit cube's packed
@@ -22,14 +22,27 @@ cell (`SpaceState.cells`). Rounds repeat while any ray walks, up to
 the megakernel (`trace_kernel.py`) does; this path serves the states whose
 megakernel tables do not fit (`trace_kernel.megakernel_fits`).
 
-On the H100 the kernel is one thread per ray; what bounds it is the
-serial chain of dependent row loads per ray and warp divergence, as for
-the megakernel. The TPU kernel's min-domain group synchronisation and its
-`domains_per_iter` / `macro_steps` knobs only schedule rays inside a
-group of 1024 and do not change a ray's result; they are gone.
+The round loop (`trace_phases_v1`) packs the ray constants once per call
+and carries the state, saved registers and hit buffers in one i32[28, m]
+round buffer (`pack_round`). A frame's first round walks nearly every
+ray and its later rounds a few (plaza640 at 1080p: 2.07 M, 1.04 M, 319,
+311), so each round lists the rays that walk in it, launches the kernel
+over the list and runs the glue on the same rays (`walk_round`,
+`advance_packed`); the result is bit for bit that of the all-ray loop
+(`trace_phases_all_rays` with the per-field glue `advance`, as `aic_tpu`
+runs it: the reference). The glue of a round is ~150 PyTorch operations
+whatever its size, so the rounds are bound by their dispatch on the
+host.
 
-`run_surface_finder` dispatches on the tensors' device: CPU → the plain
-vectorised version, CUDA → the kernel or an exception.
+On the H100 the kernel is one thread per ray; what bounds it is the
+per-step arithmetic and the serial chain of the longest rays (see
+`csrc/trace_v1.cu`). The TPU kernel's min-domain group synchronisation
+and its `domains_per_iter` / `macro_steps` knobs only schedule rays
+inside a group of 1024 and do not change a ray's result; they are gone.
+
+`run_surface_finder` (all rays) and `find_surfaces` (a walking list)
+dispatch on the tensors' device: CPU → the plain vectorised version, CUDA
+→ the kernel or an exception.
 """
 
 from __future__ import annotations
@@ -47,11 +60,13 @@ from .accel import RES_SHIFT, VOXEL_BIT, brick_dims
 from .trace_kernel import (
     MAX_REGIONS,
     PHASES,
-    RAY_FIELDS,
     REGION,
+    PackedRays,
     _argmin3,
     _pack_bits_3d,
     _w,
+    pack_fields,
+    unpack_fields,
 )
 from .tracer import HIT_ATOM, HIT_NONE as TR_HIT_NONE, HIT_VOXEL
 
@@ -188,12 +203,16 @@ def surface_finder_plain(rays: dict, st: dict, ctx: BitmaskCtx, work: dict | Non
     does, per walking ray, either one macro step across an empty region
     or up to `SUBSTEPS` cube steps within its current domain. Returns the
     15 `OUT_FIELDS`. `work`, a dict, gets the work the kernel does on
-    these inputs, by branch: "rays"; "iters" and "outer_iters"
+    these inputs, by branch: "rays" and "walking" (rays, and those
+    walking at launch); "inner" and "macro_rays" (walking rays in a voxel
+    grid, and rays that take a macro step: those that read their grid's
+    resolution, and their origin and direction); "iters" and "outer_iters"
     (iterations of walking rays, and those in an outer domain);
     "macro_steps"; "steps" and "outer_steps" (cube-step attempts, and
     those in an outer domain); "tests" (attempts that test a bit:
     neither a region change nor a step out of the volume or grid);
-    "hits"."""
+    "hits"; and "ray_steps", each ray's attempts (i32[m], the critical
+    path's length, no operation count)."""
     ox, oy, oz = rays["ox"], rays["oy"], rays["oz"]
     dx, dy, dz = rays["dx"], rays["dy"], rays["dz"]
     ivx, ivy, ivz = rays["ivx"], rays["ivy"], rays["ivz"]
@@ -228,6 +247,10 @@ def surface_finder_plain(rays: dict, st: dict, ctx: BitmaskCtx, work: dict | Non
 
     if work is not None:
         work["rays"] = work.get("rays", 0) + ox.shape[0]
+        work["ray_steps"] = work.get("ray_steps", 0) + torch.zeros_like(dom)
+    count("walking", walking)
+    count("inner", walking & (dom >= n_regions))
+    macro = torch.zeros_like(walking)
     for _ in range(ITERS):
         if not bool(walking.any()):
             break
@@ -239,6 +262,7 @@ def surface_finder_plain(rays: dict, st: dict, ctx: BitmaskCtx, work: dict | Non
         l1bit = (l1[(dom_c >> 5).long()] >> (dom_c & 31)) & 1
         in_empty = walking & ~inner & (l1bit == 0) & ~outside(cx, cy, cz, sx, sy, sz)
         count("macro_steps", in_empty)
+        macro = macro | in_empty
         rbx, rby, rbz = ((cx >> 4) + spx) << 4, ((cy >> 4) + spy) << 4, ((cz >> 4) + spz) << 4
         rtx = _w(stx == 0, inf, (rbx.float() - ox) * ivx)
         rty = _w(sty == 0, inf, (rby.float() - oy) * ivy)
@@ -294,6 +318,8 @@ def surface_finder_plain(rays: dict, st: dict, ctx: BitmaskCtx, work: dict | Non
             hit_now = act & ~out_exit & ~in_exit & ~region_change & (bit == 1)
             commit = act & ~region_change
             count("steps", act)
+            if work is not None:
+                work["ray_steps"] = work["ray_steps"] + act.int()
             count("outer_steps", act & ~inner)
             count("tests", commit & ~out_exit & ~in_exit)
             count("hits", hit_now)
@@ -308,6 +334,7 @@ def surface_finder_plain(rays: dict, st: dict, ctx: BitmaskCtx, work: dict | Non
             nt = _w(hit_now, torch.minimum(utx, torch.minimum(uty, utz)), nt)
             hx, hy, hz = _w(hit_now, ncx, hx), _w(hit_now, ncy, hy), _w(hit_now, ncz, hz)
             walking = walking & ~record & ~(act & out_exit)
+    count("macro_rays", macro)
     return dict(
         dom=dom, cx=cx, cy=cy, cz=cz, tmx=tmx, tmy=tmy, tmz=tmz,
         walking=walking.to(torch.int32), hit=hit, face=face, t=t, nt=nt,
@@ -318,52 +345,75 @@ def surface_finder_plain(rays: dict, st: dict, ctx: BitmaskCtx, work: dict | Non
 def _fn():
     lib = kernels.load_library("trace_v1")
     fn = lib.aic_trace_v1
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def surface_finder_cuda(rays: dict, st: dict, ctx: BitmaskCtx) -> dict:
-    """Launch `csrc/trace_v1.cu` once over all rays; same contract as
-    `surface_finder_plain`."""
+def launch(rays: PackedRays, st_in: torch.Tensor, ctx: BitmaskCtx,
+           idx: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch `csrc/trace_v1.cu` on packed inputs (the state as
+    `pack_fields(st, STATE_FIELDS, FLOAT_FIELDS)`, i32[9, m]) over the
+    rays `idx` (i64[n], each walking), or over all m rays without a list.
+    Returns the packed i32[15, n] `OUT_FIELDS`, column j for ray idx[j].
+    An empty list launches nothing."""
     global LAUNCHES
     dev = ctx.rows.device
-    m = rays["ox"].shape[0]
-    ray_f = torch.stack([rays[k] for k in RAY_FIELDS[:9]]).contiguous()
-    ray_i = torch.stack([rays[k] for k in RAY_FIELDS[9:]]).contiguous()
-    st_in = torch.stack(
-        [st[k].view(torch.int32) if k in FLOAT_FIELDS else st[k] for k in STATE_FIELDS]
-    ).contiguous()
+    m = rays.f.shape[1]
+    n = m if idx is None else idx.shape[0]
     req = kernels.require
-    req(ray_f, "rays", torch.float32, (9, m), dev)
-    req(ray_i, "ray steps", torch.int32, (3, m), dev)
+    req(rays.f, "rays", torch.float32, (9, m), dev)
+    req(rays.i, "ray steps", torch.int32, (3, m), dev)
     req(st_in, "state", torch.int32, (len(STATE_FIELDS), m), dev)
     req(ctx.l1, "l1", torch.int32, (1, 128), dev)
     req(ctx.rows, "rows", torch.int32, (ctx.rows.shape[0], 128), dev)
-    out = torch.empty((len(OUT_FIELDS), m), dtype=torch.int32, device=dev)
+    if idx is not None:
+        req(idx, "walking list", torch.int64, (n,), dev)
+    out = torch.empty((len(OUT_FIELDS), n), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
     ptr = kernels.ptr
     err = _fn()(
-        ptr(ray_f), ptr(ray_i), ptr(st_in), ptr(out), ptr(ctx.l1), ptr(ctx.rows),
-        m, ITERS, SUBSTEPS, ctx.n_regions, ctx.rows.shape[0],
+        ptr(rays.f), ptr(rays.i), ptr(st_in), ptr(out), ptr(ctx.l1), ptr(ctx.rows),
+        ctypes.c_void_p(0) if idx is None else ptr(idx), n, m,
+        ITERS, SUBSTEPS, ctx.n_regions, ctx.rows.shape[0],
         ctx.size[0], ctx.size[1], ctx.size[2], ctx.rdims[1], ctx.rdims[2],
         kernels.stream_ptr(dev),
     )
     LAUNCHES += 1
     kernels.check_launch(err, "trace v1 kernel")
-    return {
-        k: (out[i].view(torch.float32) if k in FLOAT_FIELDS else out[i])
-        for i, k in enumerate(OUT_FIELDS)
-    }
+    return out
+
+
+def surface_finder_cuda(rays: dict, st: dict, ctx: BitmaskCtx) -> dict:
+    """Pack, then launch `csrc/trace_v1.cu` once over all rays; same
+    contract as `surface_finder_plain`. Writes none of its inputs."""
+    st_in = pack_fields(st, STATE_FIELDS, FLOAT_FIELDS)
+    return unpack_fields(launch(PackedRays.pack(rays), st_in, ctx), OUT_FIELDS, FLOAT_FIELDS)
 
 
 def run_surface_finder(rays: dict, st: dict, ctx: BitmaskCtx) -> dict:
-    """One surface-finder launch: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    """One surface-finder launch over all rays: the kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     dev = ctx.rows.device
     if dev.type == "cuda":
         return surface_finder_cuda(rays, st, ctx)
     if dev.type == "cpu":
         return surface_finder_plain(rays, st, ctx)
+    raise ValueError(f"no v1 trace kernel for device {dev}")
+
+
+def find_surfaces(rays: PackedRays, st_buf: torch.Tensor, idx: torch.Tensor, ctx: BitmaskCtx) -> torch.Tensor:
+    """The surface finder over the listed rays `idx` of the packed state:
+    the kernel reads them through the list on CUDA; on the CPU the plain
+    version runs on the gathered rays. Returns the packed i32[15, n]
+    `OUT_FIELDS` of the listed rays, in list order."""
+    dev = ctx.rows.device
+    if dev.type == "cuda":
+        return launch(rays, st_buf, ctx, idx)
+    if dev.type == "cpu":
+        st = unpack_fields(st_buf[:, idx], STATE_FIELDS, FLOAT_FIELDS)
+        return pack_fields(surface_finder_plain(rays.take(idx).fields(), st, ctx), OUT_FIELDS, FLOAT_FIELDS)
     raise ValueError(f"no v1 trace kernel for device {dev}")
 
 
@@ -389,6 +439,41 @@ def empty_buffers(m: int, device) -> tuple[dict, dict]:
     return saved, hb
 
 
+#: The round loop's packed buffer, i32[28, m]: the 9-field launch state,
+#: the saved outer registers and the hit buffers (`hit_cube` in the last
+#: three rows); float fields bit-cast.
+SAVED_FIELDS = ("sdom", "scx", "scy", "scz", "stmx", "stmy", "stmz", "sbx", "sby", "sbz")
+HIT_FIELDS = ("hit_kind", "hit_idx", "hit_vflat", "hit_face", "hit_t", "hit_next_t")
+ROUND_ROWS = len(STATE_FIELDS) + len(SAVED_FIELDS) + len(HIT_FIELDS) + 3
+ROUND_FLOAT = frozenset(("tmx", "tmy", "tmz", "stmx", "stmy", "stmz", "hit_t", "hit_next_t"))
+_S, _H = len(STATE_FIELDS), len(STATE_FIELDS) + len(SAVED_FIELDS)  # first saved / hit row
+WALKING_ROW = STATE_FIELDS.index("walking")
+HIT_KIND_ROW = _H
+
+
+def pack_round(st: dict, saved: dict, hb: dict) -> torch.Tensor:
+    """State, saved registers and hit buffers → the i32[28, n] round buffer."""
+    return torch.cat([
+        pack_fields(st, STATE_FIELDS, ROUND_FLOAT), pack_fields(saved, SAVED_FIELDS, ROUND_FLOAT),
+        pack_fields(hb, HIT_FIELDS, ROUND_FLOAT), hb["hit_cube"].T,
+    ])
+
+
+def hit_buffers(buf: torch.Tensor) -> dict:
+    """The hit-buffer dict (`advance`'s, the shader's) as views of a round
+    buffer."""
+    hb = unpack_fields(buf[_H : _H + 6], HIT_FIELDS, ROUND_FLOAT)
+    hb["hit_cube"] = buf[_H + 6 :].T
+    return hb
+
+
+def unpack_round(buf: torch.Tensor) -> tuple[dict, dict, dict]:
+    """The inverse of `pack_round`: (state, saved registers, hit buffers) as
+    views."""
+    return (unpack_fields(buf[:_S], STATE_FIELDS, ROUND_FLOAT),
+            unpack_fields(buf[_S:_H], SAVED_FIELDS, ROUND_FLOAT), hit_buffers(buf))
+
+
 def _fetch_cell(state: SpaceState, size, x, y, z):
     """Packed outer cell at (x, y, z), clamped into the volume, from the
     brick rows (pallas_trace.py:576-585)."""
@@ -404,7 +489,9 @@ def advance(state: SpaceState, ctx: BitmaskCtx, rays: dict, d_len, st: dict, sav
     each hit through its packed cell, record final hits in the hit
     buffers, and carry the state over -- a voxel block pushes the outer
     registers and enters its grid one voxel early (1e-4/|d| nudge), an
-    inner exit pops them. Returns (st, saved, hb) for the next launch."""
+    inner exit pops them. Returns (st, saved, hb) for the next launch.
+    Per field, as `aic_tpu`'s glue: the all-ray loop's, and the reference
+    that `advance_packed` equals bit for bit."""
     n_regions = ctx.n_regions
     max_r = state.tables.padded_voxel_resolution
     hit = out["hit"]
@@ -490,14 +577,126 @@ def advance(state: SpaceState, ctx: BitmaskCtx, rays: dict, d_len, st: dict, sav
     return st, saved, hb
 
 
+def advance_packed(state: SpaceState, ctx: BitmaskCtx, rays: PackedRays, d_len, buf: torch.Tensor,
+                   out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One round's glue after a launch (pallas_trace.py:593-690), on packed
+    columns: rays, the i32[28, n] round buffer the launch read and its
+    i32[15, n] output. Classifies each hit through its packed cell, records
+    final hits in the hit buffers, and carries the state over -- a voxel
+    block pushes the outer registers and enters its grid one voxel early
+    (1e-4/|d| nudge), an inner exit pops them. The x, y and z of a quantity
+    are one [3, n] tensor, each element computed by the same operations in
+    the same order as in `advance`. Returns (the next round buffer,
+    walking bool[n])."""
+    n_regions = ctx.n_regions
+    max_r = state.tables.padded_voxel_resolution
+    hit, face, t = out[8], out[9], out[10].view(torch.float32)
+    h = out[12:15]
+    cell = _fetch_cell(state, ctx.size, h[0], h[1], h[2])
+    is_vox = (cell & VOXEL_BIT) != 0
+    payload = cell & 0xFFFF
+    res_log2 = (cell >> RES_SHIFT) & 7
+
+    outer = hit == HIT_OUTER
+    atom = outer & ~is_vox
+    vox = outer & is_vox
+    innerh = hit == HIT_INNER
+    iexit = hit == INNER_EXIT
+    final = atom | innerh
+
+    # ---- record final hits -------------------------------------------------
+    old = buf[_H:]
+    vflat = (out[0] - n_regions) * (max_r**3) + (h[0] * max_r + h[1]) * max_r + h[2]
+    hits = torch.cat([
+        torch.stack([
+            _w(atom, HIT_ATOM, _w(innerh, HIT_VOXEL, old[0])),
+            _w(atom, payload, old[1]),
+            _w(innerh, vflat, old[2]),
+        ]),
+        _w(final, out[9:12], old[3:6]),  # face, t, next t
+        _w(final, _w(innerh, buf[_H - 3 : _H], h), old[6:9]),  # the block's cube for a voxel
+    ])
+
+    # ---- voxel-block entry registers: one virtual voxel early along the
+    # entry face axis (recursive_raycast, raycast.rs:458) -------------------
+    o, d, iv, step = rays.f[0:3], rays.f[3:6], rays.f[6:9], rays.i
+    oh = (face % 3) == torch.arange(3, device=face.device)[:, None]
+    blk_res = 1 << res_log2
+    rf = blk_res.float()
+    io = (o - h.float()) * rf
+    ep = io + d * rf * t + d * (1e-4 / d_len)
+    ic = torch.minimum(torch.clamp(torch.floor(ep).int(), min=0), blk_res - 1)
+    itm = _w(step == 0, float("inf"), ((ic + (step > 0).int()).float() - io) * iv / rf)
+
+    # ---- state transitions: enter the block, pop on an inner exit ----------
+    on_vox = torch.cat([
+        (n_regions + payload)[None], ic - oh.int() * step, _w(oh, t, itm).view(torch.int32), res_log2[None],
+    ])
+    on_exit = torch.cat([buf[_S : _S + 7], torch.zeros_like(buf[:1])])
+    walking = vox | iexit | (out[7] == 1)
+    st = torch.cat([
+        _w(vox, on_vox, _w(iexit, on_exit, torch.cat([out[0:7], buf[7:8]]))),
+        walking.to(torch.int32)[None],
+    ])
+    saved = _w(vox, torch.cat([out[0:7], h]), buf[_S:_H])
+    return torch.cat([st, saved, hits]), walking
+
+
+def walk_round(state: SpaceState, ctx: BitmaskCtx, rays: PackedRays, d_len, buf: torch.Tensor,
+               idx: torch.Tensor) -> torch.Tensor:
+    """One round over the walking rays `idx` (i64[n], the rays whose state
+    walks) of the round buffer `buf` (i32[28, m], `pack_round`): the
+    surface finder over the list, `advance_packed` over the same rays, its
+    results scattered into `buf` (the rays off the list keep theirs, as an
+    all-ray round leaves them). Returns the rays that walk in the next
+    round."""
+    out = find_surfaces(rays, buf[:_S], idx, ctx)
+    nxt, walking = advance_packed(state, ctx, rays.take(idx), d_len[idx], buf[:, idx], out)
+    buf[:, idx] = nxt
+    return idx[walking]
+
+
 def trace_phases_v1(state: SpaceState, ctx: BitmaskCtx, rays: dict, st2: dict, d_len, shade_fn):
     """The v1 phase loop (`_trace_pallas_impl`, pallas_trace.py:696-714):
-    per phase, rounds of one launch + `advance` while any ray walks (at
-    most `ROUNDS`), then shading of the phase's final hits; a ray resumes
-    in the next phase while its transmittance is at least 1/256. Returns
-    (light f32[m,3], transmittance f32[m], unfinished bool), the sky not
-    yet added; `unfinished` is set when a ray still walks after `ROUNDS`
-    rounds."""
+    per phase, rounds of the surface finder + the glue while any ray walks
+    (at most `ROUNDS`), then shading of the phase's final hits; a ray
+    resumes in the next phase while its transmittance is at least 1/256.
+    The ray constants are packed once and the state, saved registers and
+    hit buffers carried in one packed buffer; each round walks only the
+    rays that walk in it (`walk_round`), and its list is the one sync per
+    round. Returns (light f32[m,3], transmittance f32[m], unfinished bool),
+    the sky not yet added; `unfinished` is set when a ray still walks after
+    `ROUNDS` rounds. Equals `trace_phases_all_rays` bit for bit."""
+    dev = ctx.rows.device
+    m = rays["ox"].shape[0]
+    packed = PackedRays.pack(rays)
+    buf = pack_round(initial_state_v1(st2), *empty_buffers(m, dev))
+    light_acc = torch.zeros((m, 3), dtype=torch.float32, device=dev)
+    trans_acc = torch.ones(m, dtype=torch.float32, device=dev)
+    unfinished = False
+    idx = torch.nonzero(buf[WALKING_ROW] == 1).squeeze(1)
+    for _phase in range(PHASES):
+        for _round in range(ROUNDS):
+            if idx.numel() == 0:
+                break
+            idx = walk_round(state, ctx, packed, d_len, buf, idx)
+        unfinished = unfinished or idx.numel() > 0
+        has_hit = buf[HIT_KIND_ROW] != TR_HIT_NONE
+        if bool(has_hit.any()):
+            light_acc, trans_acc = shade_fn(hit_buffers(buf), light_acc, trans_acc)
+        resume = has_hit & (trans_acc >= 1.0 / 256.0)
+        idx = torch.nonzero(resume).squeeze(1)
+        if idx.numel() == 0:
+            break
+        buf[WALKING_ROW] = resume.to(torch.int32)
+        buf[HIT_KIND_ROW] = 0
+    return light_acc, trans_acc, unfinished
+
+
+def trace_phases_all_rays(state: SpaceState, ctx: BitmaskCtx, rays: dict, st2: dict, d_len, shade_fn):
+    """The same phase loop with every round over all rays (one launch on
+    all m rays, `advance` on all of them), as `aic_tpu` runs it: the
+    reference that `trace_phases_v1` equals bit for bit."""
     dev = ctx.rows.device
     m = rays["ox"].shape[0]
     st = initial_state_v1(st2)

@@ -20,7 +20,10 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    finder (K3) on the atom and voxel scenes (first launch, and the inner
    round) and on the atrium and `plaza640` 1920×1080 launch states. Then
    both trace paths on the same 1920×1080 rays, atrium and `plaza640`.
-   Times at the main paths' shapes; bounds from the twins' work counts.
+   Times at the main paths' shapes; K1 and K3 by their launch alone on
+   packed inputs (`launch_ms`), the packing apart, beside the kernels'
+   earlier times (`K1_EARLIER_MS`, `K3_EARLIER_MS`); bounds from the
+   twins' work counts (K3's from the rays that walk in the launch).
 4. slice   — the first main path at full size: atrium snapshot on the
    card, `evaluate_light_dense`, `render` at 1920×1080 with smooth
    lighting (megakernel); launch counters, flaws, image checks; the
@@ -29,7 +32,11 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    tables over budget) the same way, traced by the v1 kernel; PNGs of
    both frames under `aic_tpu_torch/_build/`. Then a plaza frame and the
    snapshot and relight one stage at a time, and every K3 launch of one
-   warm frame (CUDA events).
+   warm frame: its walking rays, held against the twin field for field,
+   timed alone, its bound and its longest ray; the walking-list frame
+   against the all-ray frame (`aic_tpu`'s loop and per-field glue) bit
+   for bit, an empty list, and the trace stage through both loops,
+   alternated.
 6. the kernels line (JSON), the `nvidia-smi` line, and the last line
    {"ok": true, "device": {...}}.
 
@@ -63,8 +70,8 @@ PIXEL_MAX_SHARE = 1e-4
 #: Bounds: one H100 SXM's HBM rate and float32 rate outside the tensor
 #: cores (NVIDIA's data sheet), and each kernel's operations per unit of
 #: the work its plain twin counts on the same inputs (the twins' `work`),
-#: counted by hand from the CUDA sources along each branch (K2's checked
-#: against its SASS): one per arithmetic, comparison, logic, shift,
+#: counted by hand from the CUDA sources along each branch (K2's and K3's
+#: counted from their SASS): one per arithmetic, comparison, logic, shift,
 #: min/max, conversion or select, one per library call (floorf, fabsf,
 #: fmodf, sqrtf), table index arithmetic included; none for loads and
 #: stores (the bytes' side), register moves, a branch on a computed flag,
@@ -79,8 +86,8 @@ OPS = {
         "outer_steps": 11, "tests": 24, "hits": 2, "restores": 3, "classify": 35, "pushes": 88,
     },
     "trace_v1": {
-        "rays": 44, "iters": 4, "outer_iters": 22, "macro_steps": 114, "steps": 63,
-        "outer_steps": 11, "tests": 38, "hits": 3,
+        "rays": 35, "walking": 20, "outer_iters": 6, "macro_steps": 86, "steps": 23,
+        "outer_steps": 6, "tests": 11, "hits": 8,
     },
     "relight_pass": {
         "weights": 19, "rays": 12, "steps": 2, "inside": 10, "visible": 14, "struck": 25, "through": 15,
@@ -96,6 +103,19 @@ OPS = {
 K2_EARLIER_MS = {
     ("atrium", False): 8.560, ("atrium", True): 7.904,
     ("plaza640", False): 8.255, ("plaza640", True): 7.787,
+}
+
+#: K1 and K3 as they were before K3's redesign (the all-ray round loop
+#: and the one-walk `trace_v1.cu`), timed launch only on packed inputs as
+#: this script times them (PERF.md's kernel table, "earlier" column; NVIDIA
+#: H100 80GB HBM3, 700.00 W), printed beside this run's times as
+#: constants. Keys: `compare_trace` / `compare_v1` labels, and the rounds
+#: of a warm plaza640 frame (each an all-ray launch then).
+K1_EARLIER_MS = {"atoms": 0.022, "voxels": 0.022, "r32": 0.034, "atrium 1920x1080": 0.265}
+K3_EARLIER_MS = {
+    "atoms": 0.029, "voxels": 0.025, "atrium 1920x1080": 0.188, "plaza640 1920x1080": 0.635,
+    "plaza640 round 1": 0.6308, "plaza640 round 2": 0.0886, "plaza640 round 3": 0.1027,
+    "plaza640 round 4": 0.0703,
 }
 
 
@@ -184,6 +204,31 @@ def cuda_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+#: Cycles of the spin kernel (`torch.cuda._sleep`) queued ahead of a timed
+#: window: it keeps the card busy while the host enqueues the launches, so
+#: the events bracket device work only, not the host's time in a wrapper.
+SPIN_CYCLES = 4_000_000
+SPIN_CYCLES_ONE = 400_000
+
+
+def launch_ms(fn, reps: int) -> float:
+    """Mean device ms of `fn` over `reps` back-to-back calls (one warm-up
+    first), a spin kernel queued ahead so that no host time enters."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -406,9 +451,9 @@ def _local_rays(state, o, d):
 
 
 def compare_trace(state, o, d, label):
-    """K1 against its plain twin from the phase-1 launch state. Returns
-    (max abs error of the float fields, kernel ms, plain ms, bound ms,
-    bound by)."""
+    """K1 against its plain twin from the phase-1 launch state. Times the
+    launch alone on packed inputs, and the packing apart. Returns (max abs
+    error of the float fields, launch ms, plain ms, bound ms, bound by)."""
     import torch
     from aic_tpu_torch.raytrace import trace_kernel as tk
 
@@ -422,20 +467,45 @@ def compare_trace(state, o, d, label):
     if bool((out_p["mode"] != tk.MODE_DONE).any()):
         fail(f"trace {label}: plain megakernel left rays walking after {tk.MAX_ITERS} iterations")
     err = _fields_agree(out_k, out_p, tk.STATE_FIELDS, tk.FLOAT_FIELDS, f"trace {label}")
-    ms_k = cuda_ms(lambda: tk.megakernel_cuda(rays, st, ctx), 20)
+
+    def pack():
+        return tk.PackedRays.pack(rays), tk.pack_fields(st, tk.STATE_FIELDS, tk.FLOAT_FIELDS)
+
+    packed, st_in = pack()
+    ms_pack = launch_ms(pack, 20)
+    ms_k = launch_ms(lambda: tk.launch_megakernel(packed, st_in, ctx), 20)
     ms_p = cuda_ms(lambda: tk.megakernel_plain(rays, st, ctx), 2)
     m = o.shape[0]
     moved = m * (12 * 4 + 2 * len(tk.STATE_FIELDS) * 4) + nbytes(ctx.rows, ctx.l1, ctx.page_idx, ctx.pages)
     b_ms, b_by = bound("trace_megakernel", moved, work)
+    earlier = K1_EARLIER_MS.get(label)
+    earlier = f"{earlier:.3f} ms (constant, PERF.md)" if earlier else "not measured"
     phase("kernels", f"trace {label} {m} rays: 28 fields agree, max abs err {err:.3e}, "
-          f"kernel {ms_k:.3f} ms plain {ms_p:.3f} ms, work {work}, bound {b_ms:.4f} ms ({b_by})")
+          f"launch {ms_k:.3f} ms (parent, launch only: {earlier}), packing {ms_pack:.3f} ms, "
+          f"plain {ms_p:.3f} ms, work {work}, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms_k:.1%} of it")
     return err, ms_k, ms_p, b_ms, b_by
+
+
+def v1_bound(ctx, work) -> tuple[float, str]:
+    """K3's bound for one launch: the bytes that the rays walking at launch
+    need -- each its step and inverse direction (24 B), its state but the
+    grid resolution (32 B) and its 15 output fields (60 B); a ray in a
+    voxel grid its resolution (4 B) too, a ray that takes a macro step its
+    origin and direction (24 B) too -- plus the tables; the operations of
+    the branches they take."""
+    from aic_tpu_torch.raytrace import trace_kernel_v1 as v1
+
+    walking = work.get("walking", 0)
+    moved = (walking * (6 * 4 + (len(v1.STATE_FIELDS) - 1 + len(v1.OUT_FIELDS)) * 4)
+             + work.get("inner", 0) * 4 + work.get("macro_rays", 0) * 6 * 4)
+    return bound("trace_v1", moved + nbytes(ctx.rows, ctx.l1), work)
 
 
 def compare_v1(state, o, d, label, inner_round=False):
     """K3 against its plain twin from the phase-1 launch state (and, with
     `inner_round`, from the state the round glue makes of its result).
-    Returns (max abs error of the float fields, kernel ms, plain ms, bound
+    Times the first launch alone on packed inputs, and the packing apart.
+    Returns (max abs error of the float fields, launch ms, plain ms, bound
     ms, bound by) of the first launch."""
     import torch
     from aic_tpu_torch.raytrace import trace_kernel as tk
@@ -462,13 +532,22 @@ def compare_v1(state, o, d, label, inner_round=False):
                                      f"trace v1 {label} inner round"))
         kinds = sorted(set(out_pb["hit"].cpu().numpy().tolist()))
         note = f"; inner round agrees (hit kinds {kinds})"
-    ms_k = cuda_ms(lambda: v1.surface_finder_cuda(rays, st, ctx), 20)
+    def pack():
+        return tk.PackedRays.pack(rays), tk.pack_fields(st, v1.STATE_FIELDS, v1.FLOAT_FIELDS)
+
+    packed, st_in = pack()
+    ms_pack = launch_ms(pack, 20)
+    ms_k = launch_ms(lambda: v1.launch(packed, st_in, ctx), 20)
     ms_p = cuda_ms(lambda: v1.surface_finder_plain(rays, st, ctx), 2)
     m = o.shape[0]
-    moved = m * (12 * 4 + (len(v1.STATE_FIELDS) + len(v1.OUT_FIELDS)) * 4) + nbytes(ctx.rows, ctx.l1)
-    b_ms, b_by = bound("trace_v1", moved, work)
+    longest = int(work.pop("ray_steps").max())
+    b_ms, b_by = v1_bound(ctx, work)
+    earlier = K3_EARLIER_MS.get(label)
+    earlier = f"{earlier:.3f} ms (constant, PERF.md)" if earlier else "not measured"
     phase("kernels", f"trace v1 {label} {m} rays: 15 fields agree, max abs err {err:.3e}{note}, "
-          f"kernel {ms_k:.3f} ms plain {ms_p:.3f} ms, work {work}, bound {b_ms:.4f} ms ({b_by})")
+          f"launch {ms_k:.3f} ms (parent, launch only: {earlier}), packing {ms_pack:.3f} ms, "
+          f"plain {ms_p:.3f} ms, work {work}, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms_k:.1%} of it; "
+          f"critical path: longest ray {longest} attempts")
     return err, ms_k, ms_p, b_ms, b_by
 
 
@@ -520,30 +599,149 @@ def profiled_frame(fn) -> str:
             + "; ".join(f"{k[:60]} {ms:.3f} ms x{n}" for ms, k, n in top))
 
 
-def v1_launch_ms(fn) -> list:
-    """CUDA-event times of every K3 launch made while `fn` runs."""
+def v1_frame_launches(fn) -> list:
+    """Every K3 launch made while `fn` runs, timed alone: a short spin
+    kernel queued ahead of each keeps the host's time out of its events.
+    Returns one dict per launch: its inputs (packed rays, a copy of the
+    state, the walking list or None), a copy of its output, and its
+    events."""
     import torch
     from aic_tpu_torch.raytrace import trace_kernel_v1 as v1
 
-    real = v1.surface_finder_cuda
-    events = []
+    real = v1.launch
+    records = []
 
-    def timed(*args):
+    def timed(rays, st_in, ctx, *args, **kwargs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES_ONE)
         start.record()
-        out = real(*args)
+        out = real(rays, st_in, ctx, *args, **kwargs)
         end.record()
-        events.append((start, end))
+        idx = kwargs.get("idx", args[0] if args else None)
+        records.append(dict(rays=rays, st=st_in.clone(), idx=None if idx is None else idx.clone(),
+                            out=out.clone(), ctx=ctx, events=(start, end)))
         return out
 
-    v1.surface_finder_cuda = timed
+    v1.launch = timed
     try:
         fn()
     finally:
-        v1.surface_finder_cuda = real
+        v1.launch = real
     torch.cuda.synchronize()
-    return [a.elapsed_time(b) for a, b in events]
+    return records
+
+
+def host_ms(fn, reps: int, setup=None) -> float:
+    """Mean host-clock ms of `fn(setup())` between synchronizations, the
+    set-up outside the clock."""
+    import torch
+
+    total = 0.0
+    for _ in range(reps):
+        arg = setup() if setup else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(arg)
+        torch.cuda.synchronize()
+        total += time.perf_counter() - t0
+    return total * 1e3 / reps
+
+
+def check_v1_rounds(records, label, state) -> list:
+    """Each recorded K3 launch of a frame against the plain twin on the
+    same rays (the walking list's, where the launch had one): 15 fields
+    agree. Then each launch replayed alone (launch only, mean of 20) beside
+    the parent's time. Returns per launch (walking rays, in-frame ms, replayed ms, bound ms,
+    bound by, longest ray's attempts)."""
+    import torch
+    from aic_tpu_torch.raytrace import trace_kernel as tk
+    from aic_tpu_torch.raytrace import trace_kernel_v1 as v1
+
+    rows = []
+    for r, rec in enumerate(records, 1):
+        rays, st, idx, ctx = rec["rays"], rec["st"], rec["idx"], rec["ctx"]
+        fields = rays.fields() if idx is None else rays.take(idx).fields()
+        st_d = tk.unpack_fields(st if idx is None else st[:, idx], v1.STATE_FIELDS, v1.FLOAT_FIELDS)
+        work: dict = {}
+        want = v1.surface_finder_plain(fields, st_d, ctx, work=work)
+        got = tk.unpack_fields(rec["out"], v1.OUT_FIELDS, v1.FLOAT_FIELDS)
+        _fields_agree(got, want, v1.OUT_FIELDS, v1.FLOAT_FIELDS, f"trace v1 {label} round {r}")
+        longest = int(work.pop("ray_steps").max()) if work["rays"] else 0
+        b_ms, b_by = v1_bound(ctx, work)
+        ms_frame = rec["events"][0].elapsed_time(rec["events"][1])
+        ms = launch_ms(lambda: v1.launch(rays, st, ctx, *(() if idx is None else (idx,))), 20)
+        rows.append((int(work["walking"]), ms_frame, ms, b_ms, b_by, longest))
+        earlier = K3_EARLIER_MS.get(f"{label} round {r}")
+        earlier = f"{earlier:.3f} ms (constant, PERF.md)" if earlier else "not measured"
+        phase("kernels", f"trace v1 {label} round {r}: {work['walking']} walking rays, 15 fields agree "
+              f"with the twin; launch {ms:.4f} ms (in the frame {ms_frame:.4f} ms; parent: {earlier}), "
+              f"bound {b_ms:.4f} ms ({b_by}); longest ray {longest} attempts; work {work}")
+        del rec["out"], rec["st"]
+    torch.cuda.synchronize()
+    return rows
+
+
+def check_v1_frame(state, o, d, opts, label) -> None:
+    """The walking-list round loop against the all-ray loop (`aic_tpu`'s:
+    every round a launch over all rays and the per-field glue `advance`)
+    on one frame's rays: every phase's hit buffers, the light, the
+    transmittance and `unfinished` bit for bit; a launch over an empty
+    list launches nothing. Then the trace stage through each loop, host
+    clock, alternated (all rays, walking lists, walking lists, all rays;
+    five times)."""
+    import torch
+    from aic_tpu_torch.raytrace import trace_kernel as tk
+    from aic_tpu_torch.raytrace import trace_kernel_v1 as v1
+
+    def traced(loop):
+        hits = []
+        real_shader, real_loop = tk.make_phase_shader, v1.trace_phases_v1
+
+        def recording_shader(*args):
+            shade = real_shader(*args)
+
+            def f(hb, la, ta):
+                hits.append({k: v.clone() for k, v in hb.items()})
+                return shade(hb, la, ta)
+            return f
+
+        tk.make_phase_shader, v1.trace_phases_v1 = recording_shader, loop
+        try:
+            light, trans, unfinished = tk.trace_rays_kernel(state, o, d, opts, megakernel=False)
+        finally:
+            tk.make_phase_shader, v1.trace_phases_v1 = real_shader, real_loop
+        return light, trans, unfinished, hits
+
+    a, b = traced(v1.trace_phases_v1), traced(v1.trace_phases_all_rays)
+    torch.cuda.synchronize()
+    same = (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and a[2] == b[2] and len(a[3]) == len(b[3])
+            and all(torch.equal(x[k], y[k]) for x, y in zip(a[3], b[3]) for k in x))
+    if not same:
+        fail(f"trace v1 {label}: the walking-list frame differs from the all-ray frame")
+    ctx = v1.get_bitmask_ctx(state)
+    m = 4
+    rays = tk.PackedRays(torch.zeros((9, m), device=o.device), torch.zeros((3, m), dtype=torch.int32, device=o.device))
+    before = v1.LAUNCHES
+    out = v1.launch(rays, torch.zeros((9, m), dtype=torch.int32, device=o.device), ctx,
+                    torch.zeros(0, dtype=torch.int64, device=o.device))
+    if v1.LAUNCHES != before or out.shape != (15, 0):
+        fail(f"trace v1 {label}: an empty walking list launched the kernel")
+    stage_ms = {v1.trace_phases_v1: [], v1.trace_phases_all_rays: []}
+    real_loop = v1.trace_phases_v1
+    for loop in [v1.trace_phases_all_rays, v1.trace_phases_v1, v1.trace_phases_v1, v1.trace_phases_all_rays] * 5:
+        v1.trace_phases_v1 = loop
+        try:
+            stage_ms[loop].append(host_ms(lambda _: tk.trace_rays_kernel(state, o, d, opts, megakernel=False), 1))
+        finally:
+            v1.trace_phases_v1 = real_loop
+    ms_list, ms_all = (sum(t) / len(t) for t in stage_ms.values())
+    med_list, med_all = (sorted(t)[len(t) // 2] for t in stage_ms.values())
+    phase("kernels", f"trace v1 {label}: walking-list frame equals the all-ray frame bit for bit "
+          f"({len(a[3])} phases' hit buffers, light, transmittance, unfinished {a[2]}); an empty list "
+          f"launches nothing; trace stage (host clock, synchronized, alternated, 10 each; mean / median): "
+          f"walking lists {ms_list:.3f} / {med_list:.3f} ms, all rays (per-field glue) {ms_all:.3f} / "
+          f"{med_all:.3f} ms")
 
 
 def stage(stages: dict, name: str, fn):
@@ -763,9 +961,12 @@ def main() -> None:
         contents_np, vis, vidx >= 0, rl2, payload=accel.cell_payload(vidx)))
     stages.update(relight_stages(plaza_space, state, dev))
     phase("slice", f"plaza640 stages (ms, one each, synchronized): {stages}")
-    launch_ms = v1_launch_ms(lambda: render(state, plaza_cam))
-    phase("slice", f"plaza640 K3 launches of one warm frame (CUDA events, ms): "
-          f"{[round(x, 3) for x in launch_ms]}, sum {sum(launch_ms):.3f}")
+    rounds = check_v1_rounds(v1_frame_launches(lambda: render(state, plaza_cam)), "plaza640", state)
+    check_v1_frame(state, *plaza_cam.pixel_rays(device=dev), plaza_cam.options, "plaza640 1920x1080")
+    phase("slice", f"plaza640 K3 launches of one warm frame: walking rays per round "
+          f"{[r[0] for r in rounds]}; launch only (ms) {[round(r[2], 4) for r in rounds]}, sum "
+          f"{sum(r[2] for r in rounds):.4f} (in the frame {sum(r[1] for r in rounds):.4f}); bound per frame "
+          f"{sum(r[3] for r in rounds):.4f} ms; longest ray per round {[r[5] for r in rounds]} attempts")
     phase("slice", f"plaza640 warm frame under torch.profiler: {profiled_frame(lambda: render(state, plaza_cam))}")
     phase("kernels", f"trace_v1 at the atrium 1920x1080 launch state: {trace_v1_atrium[1]:.3f} ms "
           f"(plain {trace_v1_atrium[2]:.3f} ms, bound {trace_v1_atrium[3]:.4f} ms)")

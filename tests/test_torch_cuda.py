@@ -237,3 +237,102 @@ def test_relight_long_open_rays_match_plain(cuda_device, dyn):
     pk, pp = _packed(ctx, inc_k, tot_k), _packed(ctx, inc_p, tot_p)
     assert np.abs(pk[..., :3] - pp[..., :3]).max() <= 1
     np.testing.assert_array_equal(pk[..., 3], pp[..., 3])
+
+
+def _v1_rounds(space, device, n=4096, rounds=3, seed=5):
+    """The first `rounds` round states of a v1 frame on the card, for `n`
+    seeded rays from inside the volume: per round (packed rays, packed
+    state, walking list), after the rounds before it ran through the kernel
+    over their walking lists."""
+    st = space.snapshot(device=device)
+    size = st.contents.shape
+    o, d = chip_smoke.random_rays(n, 0.5, min(size) - 0.5, seed=seed)
+    ctx = trace_kernel_v1.build_bitmask_ctx(st)
+    r, s2, entry = trace_kernel.initial_state(
+        st, torch.as_tensor(o, device=device), torch.as_tensor(d, device=device), ctx
+    )
+    packed = trace_kernel.PackedRays.pack(r)
+    buf = trace_kernel_v1.pack_round(trace_kernel_v1.initial_state_v1(s2),
+                                     *trace_kernel_v1.empty_buffers(n, device))
+    n_st = len(trace_kernel_v1.STATE_FIELDS)
+    idx = torch.nonzero(buf[trace_kernel_v1.WALKING_ROW] == 1).squeeze(1)
+    out = []
+    for _ in range(rounds):
+        out.append((packed, buf[:n_st].clone(), idx.clone()))
+        if idx.numel() == 0:
+            break
+        idx = trace_kernel_v1.walk_round(st, ctx, packed, entry["d_len"], buf, idx)
+    return ctx, out
+
+
+def _voxel_scene_space():
+    return chip_smoke.trace_scenes(PKG)["voxels"]
+
+
+@pytest.mark.parametrize("scene", ["voxels", "atrium_small"])
+def test_trace_v1_walking_list_matches_plain(cuda_device, scene):
+    """Rounds 2 and 3 of a frame (inner walks into voxel blocks, and the
+    walks on after leaving them): the kernel over the walking list agrees
+    with the twin on the listed rays."""
+    space = atrium(width=24, depth=16, floors=2) if scene == "atrium_small" else _voxel_scene_space()
+    ctx, rounds = _v1_rounds(space, cuda_device)
+    assert len(rounds) == 3 and rounds[2][2].numel() > 0
+    for packed, st, idx in rounds[1:]:
+        before = trace_kernel_v1.LAUNCHES
+        got = trace_kernel.unpack_fields(trace_kernel_v1.find_surfaces(packed, st, idx, ctx),
+                                         trace_kernel_v1.OUT_FIELDS, trace_kernel_v1.FLOAT_FIELDS)
+        assert trace_kernel_v1.LAUNCHES == before + 1
+        want = trace_kernel_v1.surface_finder_plain(
+            packed.take(idx).fields(),
+            trace_kernel.unpack_fields(st[:, idx], trace_kernel_v1.STATE_FIELDS, trace_kernel_v1.FLOAT_FIELDS),
+            ctx,
+        )
+        _assert_v1_fields(got, want)
+
+
+def test_trace_v1_two_launches_bit_equal(cuda_device):
+    """Two launches on the same inputs give the same bits, over a walking
+    list and over all rays."""
+    ctx, rounds = _v1_rounds(_voxel_scene_space(), cuda_device)
+    for packed, st, idx in rounds[:2]:
+        for lst in (idx, None):
+            a = trace_kernel_v1.launch(packed, st, ctx, lst)
+            b = trace_kernel_v1.launch(packed, st, ctx, lst)
+            assert torch.equal(a, b)
+
+
+def test_trace_v1_zero_walking_round_launches_nothing(cuda_device):
+    """An empty walking list launches nothing and changes no buffer; a
+    frame whose rays all miss the volume launches nothing."""
+    ctx, rounds = _v1_rounds(_voxel_scene_space(), cuda_device, n=256, rounds=1)
+    packed, st, _idx = rounds[0]
+    m = st.shape[1]
+    buf = torch.ones((trace_kernel_v1.ROUND_ROWS, m), dtype=torch.int32, device=cuda_device)
+    buf[: st.shape[0]] = st
+    before_buf = buf.clone()
+    empty = torch.zeros(0, dtype=torch.int64, device=cuda_device)
+    before = trace_kernel_v1.LAUNCHES
+    state = _voxel_scene_space().snapshot(device=cuda_device)
+    d_len = torch.ones(m, device=cuda_device)
+    assert trace_kernel_v1.walk_round(state, ctx, packed, d_len, buf, empty).numel() == 0
+    torch.cuda.synchronize()
+    assert trace_kernel_v1.LAUNCHES == before
+    assert torch.equal(buf, before_buf)
+    o = torch.full((8, 3), -5.0, device=cuda_device)
+    d = torch.tensor([[-1.0, 0.0, 0.0]], device=cuda_device).expand(8, 3).contiguous()
+    opts = GraphicsOptions(lighting_display="smoothstep", fog="none")
+    _l, _t, unfinished = trace_kernel.trace_rays_kernel(state, o, d, opts, megakernel=False)
+    assert trace_kernel_v1.LAUNCHES == before and not unfinished
+
+
+def test_trace_v1_walking_list_frame_matches_all_rays(cuda_device, monkeypatch):
+    """The small atrium's v1 frame through walking lists equals the all-ray
+    loop's bit for bit, both through the kernel."""
+    space = atrium(width=24, depth=16, floors=2)
+    st = space.snapshot(device=cuda_device)
+    opts = GraphicsOptions(lighting_display="smoothstep", fog="none")
+    o, d = default_camera(space, 96, 64, opts).pixel_rays(device=cuda_device)
+    a = trace_kernel.trace_rays_kernel(st, o, d, opts, megakernel=False)
+    monkeypatch.setattr(trace_kernel_v1, "trace_phases_v1", trace_kernel_v1.trace_phases_all_rays)
+    b = trace_kernel.trace_rays_kernel(st, o, d, opts, megakernel=False)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and a[2] == b[2]
