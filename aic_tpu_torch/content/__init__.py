@@ -5,7 +5,7 @@ emissive lighting), `cornell-box` (atoms only, the page-less traversal
 branch) and `plaza640` (a 640×8×640 courtyard of the atrium's blocks,
 whose megakernel tables exceed their budget: the v1 trace path). The
 first two follow `aic_tpu/content/template.py`; `plaza640` is the port's
-own.
+own. `build_universe` (template.py) makes a whole universe of one.
 """
 
 from __future__ import annotations
@@ -29,4 +29,9 @@ def build_template_space(name: str, seed: int = 0, size: int | None = None):
     raise KeyError(f"unknown template {name!r}; available: {', '.join(TEMPLATE_NAMES)}")
 
 
-__all__ = ["TEMPLATE_NAMES", "atrium", "build_template_space", "cornell_box", "plaza", "voxel_block"]
+from .template import TemplateParameters, build_universe  # noqa: E402 (uses build_template_space)
+
+__all__ = [
+    "TEMPLATE_NAMES", "TemplateParameters", "atrium", "build_template_space", "build_universe",
+    "cornell_box", "plaza", "voxel_block",
+]

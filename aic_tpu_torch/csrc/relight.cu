@@ -46,6 +46,12 @@
 //   ring outside it is never read) at once, beside the chain contents ->
 //   face row.
 //
+// The same walk serves the incremental light queue (light/update.py
+// `relight_batch`): with `per_row` set, listed cube i reads its ray
+// weights and alpha and writes its sums at row i of per-row arrays ([n, 6],
+// [n], [n, 3], [n]) instead of at its cube index, so a queue round's batch
+// of 16 cubes neither reads nor writes a whole volume of them.
+//
 // Inputs are row-major like the tensors that hold them (cube index
 // c = (x*Y + y)*Z + z). Returns cudaGetLastError() after the launch.
 
@@ -135,9 +141,10 @@ __device__ __forceinline__ bool step(uint32_t word, Walk& k, Sums& acc,
 }
 
 // Block b walks the listed cubes cubes[32b .. 32b+31]; the mask is
-// u8[X+2, Y+2, Z+2]. Words, ray_start and warp_start follow the rays in
-// the order they are dealt to the warps; cosines and sky_ray are per chart
-// ray, ray_id[r] for dealt ray r.
+// u8[X+2, Y+2, Z+2]. Per-cube inputs and outputs are indexed by the cube,
+// or by the list position with `per_row`. Words, ray_start and warp_start
+// follow the rays in the order they are dealt to the warps; cosines and
+// sky_ray are per chart ray, ray_id[r] for dealt ray r.
 template <bool DYN>
 __global__ void __launch_bounds__(kThreads, 3) relight_pass_kernel(
     const int32_t* __restrict__ contents, const float* __restrict__ light_rgb,
@@ -147,7 +154,7 @@ __global__ void __launch_bounds__(kThreads, 3) relight_pass_kernel(
     const float* __restrict__ sky_ray, const int32_t* __restrict__ ray_start,
     const int32_t* __restrict__ ray_id, const uint32_t* __restrict__ words,
     const int32_t* __restrict__ warp_start, float* __restrict__ incoming,
-    float* __restrict__ total, int Y, int Z, int n) {
+    float* __restrict__ total, int Y, int Z, int n, bool per_row) {
   // The change of (mask index, volume index) of a step that enters its cube
   // through face f: minus the face's normal, in each array's strides.
   __shared__ int2 face_step[6];
@@ -164,11 +171,12 @@ __global__ void __launch_bounds__(kThreads, 3) relight_pass_kernel(
   const int i = blockIdx.x * 32 + lane;
   const bool listed = i < n;
   const int c = cubes[listed ? i : n - 1];
+  const int pc = per_row ? (listed ? i : n - 1) : c;  // per-cube row
   const int cx = c / (Y * Z), cy = (c / Z) % Y, cz = c % Z;
   const int q0 = ((cx + 1) * (Y + 2) + (cy + 1)) * (Z + 2) + (cz + 1);
-  const float a0 = alpha0[c];
+  const float a0 = alpha0[pc];
   float dw[6];
-  for (int f = 0; f < 6; ++f) dw[f] = dir_weights[6 * c + f];
+  for (int f = 0; f < 6; ++f) dw[f] = dir_weights[6 * pc + f];
 
   Sums acc = {0.f, 0.f, 0.f, 0.f};
   const int k1 = warp_start[warp + 1];
@@ -212,10 +220,10 @@ __global__ void __launch_bounds__(kThreads, 3) relight_pass_kernel(
       sum.z = sum.z + q.z;
       sum.w = sum.w + q.w;
     }
-    incoming[3 * c] = sum.x;
-    incoming[3 * c + 1] = sum.y;
-    incoming[3 * c + 2] = sum.z;
-    total[c] = sum.w;
+    incoming[3 * pc] = sum.x;
+    incoming[3 * pc + 1] = sum.y;
+    incoming[3 * pc + 2] = sum.z;
+    total[pc] = sum.w;
   }
 }
 
@@ -224,14 +232,14 @@ __global__ void __launch_bounds__(kThreads, 3) relight_pass_kernel(
 extern "C" int aic_relight_warps() { return kWarps; }
 
 // `incoming` and `total` come zero-filled; the kernel writes the n listed
-// cubes.
+// cubes (at their list positions with `per_row`).
 extern "C" int aic_relight_pass(
     const void* contents, const void* light_rgb, const void* face_rows,
     const void* dir_weights, const void* alpha0, const void* mask,
     const void* cubes, const void* cosines, const void* sky_ray,
     const void* ray_start, const void* ray_id, const void* words,
     const void* warp_start, void* incoming, void* total, int Y, int Z, int n,
-    int dyn, void* stream) {
+    int dyn, int per_row, void* stream) {
   if (n > 0) {
     auto kernel = dyn ? relight_pass_kernel<true> : relight_pass_kernel<false>;
     kernel<<<(n + 31) / 32, dim3(32, kWarps), 0, static_cast<cudaStream_t>(stream)>>>(
@@ -242,7 +250,7 @@ extern "C" int aic_relight_pass(
         static_cast<const float*>(sky_ray), static_cast<const int32_t*>(ray_start),
         static_cast<const int32_t*>(ray_id), static_cast<const uint32_t*>(words),
         static_cast<const int32_t*>(warp_start),
-        static_cast<float*>(incoming), static_cast<float*>(total), Y, Z, n);
+        static_cast<float*>(incoming), static_cast<float*>(total), Y, Z, n, per_row != 0);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
+import weakref
 
 import numpy as np
 import torch
@@ -79,6 +81,28 @@ def _pair_tables(max_distance: int, size: tuple[int, int, int]):
 def _dealt_pair_tables(max_distance: int, size: tuple[int, int, int]) -> dict:
     """`_pair_tables` in the order the CUDA kernel's warps walk the rays."""
     return deal_pair_tables(_pair_tables(max_distance, size))
+
+
+#: (light distance, size, id(sky_faces)) → (weakref to the sky, PairTables).
+_DEVICE_PAIRS: dict = {}
+
+
+def device_pair_tables(state: SpaceState) -> PairTables:
+    """The pair tables of the state's size and light distance with its
+    sky's ray light, on its device. They depend on nothing else, so they
+    are built once per sky tensor (a snapshot makes one; edits and device
+    ticks keep it) and shared by the dense context and the queue's
+    batches."""
+    md, size = state.light_max_distance, tuple(state.contents.shape)
+    key = (md, size, id(state.sky_faces))
+    hit = _DEVICE_PAIRS.get(key)
+    if hit is not None and hit[0]() is state.sky_faces:
+        return hit[1]
+    pairs = PairTables.from_numpy(_pair_tables(md, size), _dealt_pair_tables(md, size), state.sky_faces)
+    if len(_DEVICE_PAIRS) >= 8:
+        _DEVICE_PAIRS.pop(next(iter(_DEVICE_PAIRS)))
+    _DEVICE_PAIRS[key] = (weakref.ref(state.sky_faces), pairs)
+    return pairs
 
 
 def _shift(vol: torch.Tensor, normal) -> torch.Tensor:
@@ -145,7 +169,7 @@ def build_relight_ctx(state: SpaceState) -> RelightCtx:
     dir_weights = dir_weights.contiguous()
     alpha0 = alpha0.contiguous()
     origin_opaque = origin_opaque.contiguous()
-    pairs = PairTables.from_numpy(ch, _dealt_pair_tables(md, size), state.sky_faces)
+    pairs = device_pair_tables(state)
     return RelightCtx(
         dir_weights=dir_weights,
         alpha0=alpha0,
@@ -159,17 +183,25 @@ def build_relight_ctx(state: SpaceState) -> RelightCtx:
 
 def _finish(ctx: RelightCtx, incoming: torch.Tensor, total_w: torch.Tensor) -> torch.Tensor:
     """finish (updater.rs:925): packed light u8[X,Y,Z,4]."""
-    origin_emissive = (ctx.origin_emission != 0).any(-1)
-    opaque_emissive = ctx.origin_opaque & origin_emissive
+    return finish(ctx.origin_opaque, ctx.origin_emission, incoming, total_w)
+
+
+def finish(origin_opaque, origin_emission, incoming, total_w) -> torch.Tensor:
+    """finish (updater.rs:925) for any batch of cubes: their origin
+    opacity bool[...] and emission f32[...,3], and the summed incoming
+    light f32[...,3] and ray weight f32[...] → packed light u8[...,4].
+    Opaque origins get OPAQUE, or their emission with weight 1."""
+    origin_emissive = (origin_emission != 0).any(-1)
+    opaque_emissive = origin_opaque & origin_emissive
     one = torch.ones_like(total_w)
     zero = torch.zeros_like(total_w)
     total = torch.where(
-        ctx.origin_opaque, torch.where(opaque_emissive, one, zero), total_w
+        origin_opaque, torch.where(opaque_emissive, one, zero), total_w
     )
     incoming = torch.where(
-        ctx.origin_opaque[..., None],
+        origin_opaque[..., None],
         torch.where(
-            opaque_emissive[..., None], ctx.origin_emission, torch.zeros_like(incoming)
+            opaque_emissive[..., None], origin_emission, torch.zeros_like(incoming)
         ),
         incoming,
     )
@@ -178,7 +210,7 @@ def _finish(ctx: RelightCtx, incoming: torch.Tensor, total_w: torch.Tensor) -> t
     status = torch.where(
         total > 0.0,
         lightpack.STATUS_VISIBLE,
-        torch.where(ctx.origin_opaque, lightpack.STATUS_OPAQUE, lightpack.STATUS_NO_RAYS),
+        torch.where(origin_opaque, lightpack.STATUS_OPAQUE, lightpack.STATUS_NO_RAYS),
     ).to(torch.uint8)
     packed_rgb = torch.where(
         (status == lightpack.STATUS_VISIBLE)[..., None], packed_rgb, torch.zeros_like(packed_rgb)
@@ -209,38 +241,68 @@ def _overrelax(light, new_light, diff: int, w: float):
     return torch.cat([rgb, status], dim=-1)
 
 
+class OverrelaxFellBack(RuntimeWarning):
+    """`converge`'s over-relaxed loop met a pass whose plain change grew,
+    and ran plain Jacobi from there on."""
+
+
+class LightNotConverged(RuntimeWarning):
+    """`converge` stopped at its pass limit with a cube still moving by
+    more than one packed step."""
+
+
 def converge(state: SpaceState, ctx: RelightCtx, max_passes: int = 32, overrelax: float = 1.0):
     """Jacobi passes until no cube moves by more than 1 packed step (the
     reference's re-enqueue threshold, updater.rs:340). Returns (new packed
-    light, passes run).
+    light, passes run); warns `LightNotConverged` when it stops at
+    `max_passes` short of that, and `OverrelaxFellBack` when it drops to
+    plain Jacobi (below).
 
     As in `converge_pallas` (pallas_relight.py:827-862): one full pass
     over light that is zero inside the bounds and the sky on the ring
     around them gives the emission, sky and ring terms and the total
     weights once; each iteration adds to them the light-only pass over
     the stored light (the split is exact by linearity, up to f32
-    summation order)."""
+    summation order).
+
+    Over-relaxation can diverge: on cornell-box 16 at w = 1.3 the plain
+    pass's largest change falls to 9 steps, then grows to 127, where
+    plain Jacobi converges in 11 passes. From the first pass whose plain
+    change is larger than the pass before's, the loop runs plain Jacobi
+    (w = 1). Where w = 1.3 converges (the atrium, cornell-box 24 and 32,
+    plaza640) the change never grows before the stop, and the passes
+    and light are those of the loop without the fallback."""
     rows = state.tables.light_face_rows
     zero = torch.zeros(tuple(state.contents.shape) + (3,), dtype=torch.float32, device=state.device)
     static, total_w = relight_pass(state.contents, zero, rows, ctx)
     light = state.light
     passes = 0
+    w = overrelax
+    last = None
     while passes < max_passes:
         light_rgb = lightpack.decode_rgb(light).contiguous()
         inc, _ = relight_pass(state.contents, light_rgb, rows, ctx, dyn=True)
         new_light = _finish(ctx, inc + static + ctx.incoming0, total_w)
         diff = int(lightpack.difference_priority(light, new_light).max())
-        if overrelax != 1.0:
-            new_light = _overrelax(light, new_light, diff, overrelax)
+        if w != 1.0 and last is not None and diff > last:
+            warnings.warn(f"over-relaxed relight: the change grew to {diff} packed steps at pass {passes + 1}; "
+                          "plain Jacobi from there on", OverrelaxFellBack, stacklevel=2)
+            w = 1.0
+        last = diff
+        if w != 1.0:
+            new_light = _overrelax(light, new_light, diff, w)
         light = new_light
         passes += 1
         if diff <= 1:
-            break
+            return light, passes
+    warnings.warn(f"relight stopped after {passes} passes with a cube still moving by {diff} packed steps",
+                  LightNotConverged, stacklevel=2)
     return light, passes
 
 
 def evaluate_light_dense(state: SpaceState):
-    """Full-volume relight to convergence. Returns (state, passes_run).
+    """Full-volume relight to convergence. Returns (state, passes_run);
+    `converge`'s `LightNotConverged` warning reaches the caller.
 
     The ``fast_evaluate_light`` column scan runs first (updater.rs:531-576)
     and starts sky-lit columns at their fixpoint. A CUDA state converges

@@ -36,6 +36,11 @@ interior light is the full pass (up to f32 summation order);
 
 `relight_pass` dispatches on the device of its tensors: a CPU tensor takes
 the plain version, a CUDA tensor launches the kernel or raises.
+
+The incremental light queue (`light/update.py`) runs the same kernel over
+a round's batch (`relight_listed_cuda`): one full pass whose work list is
+the batch's cubes, with a row list so that its per-cube inputs and
+outputs are per batch row, not per cube of the volume.
 """
 
 from __future__ import annotations
@@ -49,10 +54,12 @@ import torch
 from .. import kernels
 from ..math import faces
 
-#: Launches of the CUDA kernel by this process, full and light-only
-#: variants (the plain version does not count).
+#: Launches of the CUDA kernel by this process: the full and light-only
+#: variants over a volume's work list, and the full pass over a queue
+#: round's batch (the plain versions do not count).
 LAUNCHES = 0
 LAUNCHES_DYN = 0
+LAUNCHES_LISTED = 0
 
 
 #: Warps of a kernel block; `csrc/relight.cu`'s `kWarps` (checked at load).
@@ -190,15 +197,21 @@ class KernelTables:
     @staticmethod
     def build(contents, face_rows, dir_weights, alpha0, origin_opaque) -> "KernelTables":
         """On the tensors' device: the work list and the padded mask."""
-        X, Y, Z = contents.shape
-        dev = contents.device
         walked = (alpha0 > 0.0) & ~origin_opaque & (dir_weights > 0.0).any(-1)
-        visible = face_rows.reshape(-1, 6, 8)[..., 4] >= 2.0
-        bits = (visible.to(torch.int32) << torch.arange(6, device=dev, dtype=torch.int32)).sum(-1)
-        mask = torch.full((X + 2, Y + 2, Z + 2), MASK_OUTSIDE, dtype=torch.uint8, device=dev)
-        mask[1:-1, 1:-1, 1:-1] = bits.to(torch.uint8)[contents.long()]
         cubes = walked.reshape(-1).nonzero().squeeze(1).to(torch.int32)
-        return KernelTables(cubes=cubes, face_mask=mask)
+        return KernelTables(cubes=cubes, face_mask=build_face_mask(contents, face_rows))
+
+
+def build_face_mask(contents, face_rows) -> torch.Tensor:
+    """u8[X+2,Y+2,Z+2] on the tensors' device: bit f where face f of the
+    cube is visible, `MASK_OUTSIDE` on the padding around the volume."""
+    X, Y, Z = contents.shape
+    dev = contents.device
+    visible = face_rows.reshape(-1, 6, 8)[..., 4] >= 2.0
+    bits = (visible.to(torch.int32) << torch.arange(6, device=dev, dtype=torch.int32)).sum(-1)
+    mask = torch.full((X + 2, Y + 2, Z + 2), MASK_OUTSIDE, dtype=torch.uint8, device=dev)
+    mask[1:-1, 1:-1, 1:-1] = bits.to(torch.uint8)[contents.long()]
+    return mask
 
 
 def _ring_padded_light(light_rgb: torch.Tensor, sky_faces: torch.Tensor) -> torch.Tensor:
@@ -360,9 +373,49 @@ def _fn():
     if lib.aic_relight_warps() != WARPS:
         raise RuntimeError(f"csrc/relight.cu has {lib.aic_relight_warps()} warps a block, the ray deal {WARPS}")
     fn = lib.aic_relight_pass
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(contents, light_rgb, face_rows, dir_weights, alpha0, face_mask, cubes, per_row, p, dyn):
+    """Validate and launch `csrc/relight.cu`: per-cube inputs and outputs
+    over the volume, or with `per_row` one row ([n, ...]) per listed
+    cube. Returns the zero-filled outputs the kernel wrote into and
+    whether it launched (an empty work list launches nothing)."""
+    dev = contents.device
+    X, Y, Z = contents.shape
+    n = cubes.shape[0]
+    per = (n,) if per_row else (X, Y, Z)
+    R = p.cosines.shape[0]
+    req = kernels.require
+    req(contents, "contents", torch.int32, (X, Y, Z), dev)
+    req(light_rgb, "light_rgb", torch.float32, (X, Y, Z, 3), dev)
+    req(face_rows, "face_rows", torch.float32, (face_rows.shape[0], 8), dev)
+    req(dir_weights, "dir_weights", torch.float32, per + (6,), dev)
+    req(alpha0, "alpha0", torch.float32, per, dev)
+    req(face_mask, "face_mask", torch.uint8, (X + 2, Y + 2, Z + 2), dev)
+    req(cubes, "cubes", torch.int32, (n,), dev)
+    req(p.cosines, "cosines", torch.float32, (R, 6), dev)
+    req(p.sky_ray, "sky_ray", torch.float32, (R, 3), dev)
+    req(p.ray_start, "ray_start", torch.int32, (R + 1,), dev)
+    req(p.ray_id, "ray_id", torch.int32, (R,), dev)
+    req(p.words, "words", torch.int32, tuple(p.words.shape), dev)
+    req(p.warp_start, "warp_start", torch.int32, (WARPS + 1,), dev)
+    incoming = torch.zeros(per + (3,), dtype=torch.float32, device=dev)
+    total = torch.zeros(per, dtype=torch.float32, device=dev)
+    if n == 0:
+        return incoming, total, False
+    ptr = kernels.ptr
+    err = _fn()(
+        ptr(contents), ptr(light_rgb), ptr(face_rows), ptr(dir_weights),
+        ptr(alpha0), ptr(face_mask), ptr(cubes), ptr(p.cosines),
+        ptr(p.sky_ray), ptr(p.ray_start), ptr(p.ray_id), ptr(p.words), ptr(p.warp_start),
+        ptr(incoming), ptr(total), Y, Z, n, int(dyn), int(per_row),
+        kernels.stream_ptr(dev),
+    )
+    kernels.check_launch(err, "relight kernel")
+    return incoming, total, True
 
 
 def relight_pass_cuda(contents, light_rgb, face_rows, ctx, dyn=False):
@@ -371,43 +424,25 @@ def relight_pass_cuda(contents, light_rgb, face_rows, ctx, dyn=False):
     and face rows (`dense.build_relight_ctx` does so). An empty work list
     launches nothing and gives zeros."""
     global LAUNCHES, LAUNCHES_DYN
-    dev = contents.device
-    X, Y, Z = contents.shape
-    p, kt = ctx.pairs, ctx.kernel
-    R = p.cosines.shape[0]
-    n = kt.cubes.shape[0]
-    req = kernels.require
-    req(contents, "contents", torch.int32, (X, Y, Z), dev)
-    req(light_rgb, "light_rgb", torch.float32, (X, Y, Z, 3), dev)
-    req(face_rows, "face_rows", torch.float32, (face_rows.shape[0], 8), dev)
-    req(ctx.dir_weights, "dir_weights", torch.float32, (X, Y, Z, 6), dev)
-    req(ctx.alpha0, "alpha0", torch.float32, (X, Y, Z), dev)
-    req(kt.face_mask, "face_mask", torch.uint8, (X + 2, Y + 2, Z + 2), dev)
-    req(kt.cubes, "cubes", torch.int32, (n,), dev)
-    req(p.cosines, "cosines", torch.float32, (R, 6), dev)
-    req(p.sky_ray, "sky_ray", torch.float32, (R, 3), dev)
-    req(p.ray_start, "ray_start", torch.int32, (R + 1,), dev)
-    req(p.ray_id, "ray_id", torch.int32, (R,), dev)
-    req(p.words, "words", torch.int32, tuple(p.words.shape), dev)
-    req(p.warp_start, "warp_start", torch.int32, (WARPS + 1,), dev)
-    incoming = torch.zeros((X, Y, Z, 3), dtype=torch.float32, device=dev)
-    total = torch.zeros((X, Y, Z), dtype=torch.float32, device=dev)
-    if n == 0:
-        return incoming, total
-    fn = _fn()
-    ptr = kernels.ptr
-    err = fn(
-        ptr(contents), ptr(light_rgb), ptr(face_rows), ptr(ctx.dir_weights),
-        ptr(ctx.alpha0), ptr(kt.face_mask), ptr(kt.cubes), ptr(p.cosines),
-        ptr(p.sky_ray), ptr(p.ray_start), ptr(p.ray_id), ptr(p.words), ptr(p.warp_start),
-        ptr(incoming), ptr(total), Y, Z, n, int(dyn),
-        kernels.stream_ptr(dev),
-    )
-    if dyn:
+    kt = ctx.kernel
+    incoming, total, launched = _launch(contents, light_rgb, face_rows, ctx.dir_weights, ctx.alpha0,
+                                        kt.face_mask, kt.cubes, False, ctx.pairs, dyn)
+    if launched and dyn:
         LAUNCHES_DYN += 1
-    else:
+    elif launched:
         LAUNCHES += 1
-    kernels.check_launch(err, "relight kernel")
+    return incoming, total
+
+
+def relight_listed_cuda(contents, light_rgb, face_rows, face_mask, pairs, cubes, dir_weights, alpha0):
+    """One full pass of `csrc/relight.cu` over a list of cubes (flat i32[n]
+    volume indices) whose ray weights f32[n,6] and alpha f32[n] are given
+    per row: (incoming f32[n,3], total f32[n]) per row, without the root
+    term. A row whose ray weights are all 0 walks no ray and gives 0."""
+    global LAUNCHES_LISTED
+    incoming, total, launched = _launch(contents, light_rgb, face_rows, dir_weights, alpha0,
+                                        face_mask, cubes, True, pairs, False)
+    LAUNCHES_LISTED += int(launched)
     return incoming, total
 
 

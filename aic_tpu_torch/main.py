@@ -1,14 +1,20 @@
 """Command-line frontend of the port (counterpart of `aic_tpu/main.py`).
 
-Builds a template, snapshots it onto a device, relights it to
-convergence with `evaluate_light_dense` and renders one frame to PNG:
+Builds a template's universe on a device, relights it to convergence
+with `evaluate_light` (the dense passes for a freshly built world), and
+then either renders one frame to PNG (`--graphics record`) or steps the
+universe for `--duration` simulated seconds at 60 ticks a second without
+rendering (`--graphics headless`):
 
     python -m aic_tpu_torch.main --template atrium --graphics record \\
-        --output frame.png --width 1920 --height 1080 --device cuda
+        --output frame.png --width 1920 --height 1080
+    python -m aic_tpu_torch.main --template cornell-box --size 16 \\
+        --graphics headless --duration 0.2 --device cpu
 
-`--device cuda` runs the relight and trace through the CUDA kernels,
-`--device cpu` through their plain PyTorch twins. Only the `record`
-graphics mode is ported.
+`--device cuda` (the default) runs the relight, the step and the trace
+through the CUDA kernels and refuses to run without a card; `--device
+cpu` runs their plain PyTorch twins. The other graphics modes of
+`aic_tpu` are not ported yet.
 """
 
 from __future__ import annotations
@@ -47,12 +53,13 @@ def default_camera(space, width, height, options):
 def main(argv=None):
     p = argparse.ArgumentParser(prog="aic-tpu-torch")
     p.add_argument("--template", default="cornell-box")
-    p.add_argument("--graphics", default="record", choices=["record"])
+    p.add_argument("--graphics", default="record", choices=["record", "headless"])
     p.add_argument("--size", type=int, default=None, help="template size")
     p.add_argument("--width", type=int, default=120)
     p.add_argument("--height", type=int, default=80)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--output", default="frame.png")
+    p.add_argument("--duration", type=float, default=1.0, help="headless sim seconds")
     p.add_argument("--lighting", default="smoothstep")
     p.add_argument("--no-relight", action="store_true")
     p.add_argument("--device", default="cuda", help="torch device: cuda or cpu")
@@ -60,22 +67,35 @@ def main(argv=None):
 
     import torch
 
-    from .content import build_template_space
-    from .light import evaluate_light_dense
+    from .content import TemplateParameters, build_universe
+    from .light.update import evaluate_light
     from .raytrace import GraphicsOptions, render, save_png
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
     try:
-        space = build_template_space(args.template, seed=args.seed, size=args.size)
+        u = build_universe(args.template, TemplateParameters(seed=args.seed, size=args.size), device=device)
     except KeyError as e:
-        raise SystemExit(str(e))
-    state = space.snapshot(device=device)
+        raise SystemExit(str(e).strip("'\""))
+    space, state = u.spaces["world"], u.states["world"]
     if not args.no_relight and state.light_enabled:
         t0 = time.time()
-        state, n = evaluate_light_dense(state)
-        print(f"[light] {n} passes in {time.time() - t0:.1f}s", file=sys.stderr)
+        state, n = evaluate_light(state, batch_size=1024, max_rounds=5000)
+        u.states["world"] = state
+        print(f"[light] {n} cube updates in {time.time() - t0:.1f}s", file=sys.stderr)
+
+    if args.graphics == "headless":
+        n_ticks = int(args.duration * 60)
+        t0 = time.time()
+        for _ in range(n_ticks):
+            info = u.step()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        print(f"[headless] {n_ticks} ticks in {time.time() - t0:.1f}s" + (
+            f"; last tick {info.tick}: {info.space_edits} edits, {info.light_updates} light updates, "
+            f"queue {info.light_queue}" if n_ticks else ""), file=sys.stderr)
+        return
 
     options = GraphicsOptions(lighting_display=args.lighting, fog="none")
     cam = default_camera(space, args.width, args.height, options)

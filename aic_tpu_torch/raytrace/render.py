@@ -160,7 +160,13 @@ def finish_frame(light, trans, exposure: float, options) -> torch.Tensor:
 
 def render(state: SpaceState, camera: Camera) -> Rendering:
     """Render to an sRGB image (host). Imperfections are reported in
-    Rendering.flaws (flaws.rs contract), never silently dropped."""
+    Rendering.flaws (flaws.rs contract), never silently dropped.
+
+    `GraphicsOptions.debug_pixel_cost` asks `aic_tpu` for its pixel-cost
+    image (render.py:222-223), which is not ported yet (ROADMAP A12):
+    raises NotImplementedError rather than return a shaded frame."""
+    if camera.options.debug_pixel_cost:
+        raise NotImplementedError("the pixel-cost debug render is not ported yet")
     vp = camera.viewport
     if vp.is_empty():
         return Rendering(vp.width, vp.height, np.zeros((vp.height, vp.width, 4), np.uint8))

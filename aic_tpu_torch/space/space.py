@@ -1,11 +1,13 @@
 """Host-authoritative Space container + palette (layer 1).
 
 Port of `aic_tpu/space/space.py`. The host side (palette dedup, block
-evaluation, `set`/`fill`, the fast light seed) is copied unchanged;
+evaluation, `set`/`fill`, the fast light seed, and what transactions
+and the step loop read: `palette_len`, `block_at`, `index_at`, the
+palette `epoch`, `reevaluate_palette`) is copied unchanged;
 `snapshot(device=...)` builds the same numpy tables and packed cells
 and hands them over with `torch.as_tensor`. Left out until later slices:
-`extract`, `absorb`, and palette GC reporting helpers beyond what
-`ensure_block` needs.
+`extract`, `absorb`, `distinct_blocks`, and the edit journal
+(`drain_edits`), whose reader in `aic_tpu` is the mesh updater.
 """
 
 from __future__ import annotations
@@ -57,10 +59,20 @@ class Space:
         self.light = np.zeros(bounds.size + (4,), np.uint8)
         self.light_dirty = np.zeros(bounds.size, np.uint8)
         self.spawn_position: Optional[tuple] = None
+        #: Bumped on palette changes (a new or recycled entry, GC,
+        #: re-evaluation): the step loop's tick-closure cache keys on it.
+        self.epoch = 0
         if fill is not None and fill is not AIR:
             self.fill(bounds, fill)
 
     # -- palette ------------------------------------------------------------
+
+    @property
+    def palette(self) -> list[Block]:
+        return list(self._palette)
+
+    def palette_len(self) -> int:
+        return len(self._palette)
 
     def ensure_block(self, block: Block) -> int:
         """Dedup-intern a block, evaluating it (space/palette.rs)."""
@@ -80,6 +92,7 @@ class Space:
             self._evaluated.append(evaluate(block))
             idx = len(self._palette) - 1
         self._block_to_index[block] = idx
+        self.epoch += 1
         return idx
 
     def _collect_garbage(self) -> int:
@@ -95,10 +108,24 @@ class Space:
                 self._evaluated[idx] = AIR_EVALUATED
                 self._free_slots.append(idx)
                 freed += 1
+        if freed:
+            self.epoch += 1
         return freed
+
+    def reevaluate_palette(self):
+        """Re-run evaluation for all palette entries (the step loop's
+        `Synchronize` phase for changed BlockDefs)."""
+        self._evaluated = [evaluate(b) for b in self._palette]
+        self.epoch += 1
 
     def evaluated(self, index: int) -> EvaluatedBlock:
         return self._evaluated[index]
+
+    def block_at(self, cube) -> Block:
+        return self._palette[int(self.contents[self._rel(cube)])]
+
+    def index_at(self, cube) -> int:
+        return int(self.contents[self._rel(cube)])
 
     # -- mutation (host-side content construction) ---------------------------
 

@@ -14,6 +14,11 @@ them; the megakernel path reads its classify pages instead.
 `state_from_numpy` / `state_to_numpy` convert to and from the numpy
 arrays of an `aic_tpu` `SpaceState`, so tests can feed one state to both
 packages.
+
+The device lookups and the device half of a transaction commit
+(`in_bounds_mask`, `lookup_contents`, `lookup_light`,
+`scatter_set_cubes`) are `aic_tpu/space/state.py:113-190` on tensors on
+the state's device.
 """
 
 from __future__ import annotations
@@ -87,6 +92,10 @@ class BlockTables:
     def padded_voxel_resolution(self) -> int:
         return self.vox_rows.shape[1]
 
+    @property
+    def padded_palette_size(self) -> int:
+        return self.resolution.shape[0]
+
     def to(self, device) -> "BlockTables":
         return _to(self, device)
 
@@ -113,6 +122,71 @@ class SpaceState:
 
     def to(self, device) -> "SpaceState":
         return dataclasses.replace(_to(self, device), tables=self.tables.to(device))
+
+
+def in_bounds_mask(state: SpaceState, idx: torch.Tensor) -> torch.Tensor:
+    """Mask of index-space positions (..., 3) inside the contents array."""
+    size = torch.as_tensor(state.contents.shape, dtype=idx.dtype, device=idx.device)
+    return ((idx >= 0) & (idx < size)).all(-1)
+
+
+def _flat_index(shape, idx: torch.Tensor) -> torch.Tensor:
+    """Flat i64 index of positions (..., 3), clamped into `shape`."""
+    X, Y, Z = shape
+    x = idx[..., 0].clamp(0, X - 1).long()
+    y = idx[..., 1].clamp(0, Y - 1).long()
+    z = idx[..., 2].clamp(0, Z - 1).long()
+    return (x * Y + y) * Z + z
+
+
+def lookup_contents(state: SpaceState, idx: torch.Tensor):
+    """Palette indices at index-space positions (..., 3), and the in-bounds
+    mask; out-of-bounds positions read 0 (air)."""
+    mask = in_bounds_mask(state, idx)
+    vals = state.contents.reshape(-1)[_flat_index(state.contents.shape, idx)]
+    return torch.where(mask, vals, 0), mask
+
+
+def lookup_light(state: SpaceState, idx: torch.Tensor):
+    """Light texels at index-space positions (..., 3) → (u8[..., 4],
+    in-bounds mask). Callers substitute the sky outside the bounds."""
+    mask = in_bounds_mask(state, idx)
+    vals = state.light.reshape(-1, 4)[_flat_index(state.contents.shape, idx)]
+    return vals, mask
+
+
+def scatter_set_cubes(state: SpaceState, idx: torch.Tensor, new_indices: torch.Tensor) -> SpaceState:
+    """contents[idx] = new_indices, as a new state: the device half of a
+    `SpaceTransaction` commit. Positions are index-space i32[N, 3] whose
+    preconditions the caller has checked; positions outside the bounds are
+    dropped. The cubes and their 6 neighbours are marked light-dirty
+    (255), and the packed cells (skip field included) are rebuilt from
+    the new contents on the state's device."""
+    from ..math.faces import FACE7_NORMALS
+    from ..raytrace.accel import brick_dims, build_trace_cells, cell_payload, to_bricks
+
+    dev = state.contents.device
+    idx = idx.to(device=dev, dtype=torch.int64)
+    shape = state.contents.shape
+    n = state.contents.numel()
+    inside = in_bounds_mask(state, idx)
+    # Rows outside the bounds write into one spare element past the end.
+    flat = torch.where(inside, _flat_index(shape, idx), n)
+    contents = torch.cat([state.contents.reshape(-1), state.contents.new_zeros(1)])
+    contents[flat] = new_indices.to(device=dev, dtype=contents.dtype)
+    contents = contents[:n].reshape(shape)
+
+    nb = (idx[:, None, :] + torch.as_tensor(FACE7_NORMALS, dtype=torch.int64, device=dev)).reshape(-1, 3)
+    dirty = torch.cat([state.light_dirty.reshape(-1), state.light_dirty.new_zeros(1)])
+    dirty[torch.where(in_bounds_mask(state, nb), _flat_index(shape, nb), n)] = 255
+    dirty = dirty[:n].reshape(shape)
+
+    t = state.tables
+    space_cells = build_trace_cells(contents, t.visible, t.voxel_index >= 0, t.res_log2,
+                                    payload=cell_payload(t.voxel_index))
+    n_sb = int(np.prod(brick_dims(shape)))
+    cells = torch.cat([to_bricks(space_cells), state.cells[n_sb:]], dim=0)
+    return dataclasses.replace(state, contents=contents, light_dirty=dirty, cells=cells)
 
 
 def state_from_numpy(

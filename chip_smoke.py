@@ -14,7 +14,9 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    full(ring only) + light-only against the full pass, the time beside
    the one-thread-per-cube kernel's and the bound, the critical path of
    both designs), on a state with no listed cube (zeros, no launch), and
-   the over-relaxed loop to convergence on each; the traversal
+   the over-relaxed loop to convergence on each (on cornell-box 16 it
+   falls back to plain Jacobi, which is printed; anywhere else in the run
+   a fall-back is a failure); the traversal
    megakernel (K1) on small atom, voxel and R32 scenes and on the atrium
    at 1920×1080; the v1 surface
    finder (K3) on the atom and voxel scenes (first launch, and the inner
@@ -37,8 +39,27 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    against the all-ray frame (`aic_tpu`'s loop and per-field glue) bit
    for bit, an empty list, and the trace stage through both loops,
    alternated.
-6. the kernels line (JSON), the `nvidia-smi` line, and the last line
-   {"ok": true, "device": {...}}.
+   After each slice, K2 over a queue round's batch (one listed launch,
+   `relight_batch_cuda`) against the plain `relight_batch` walk on the
+   same batch: a first round's 16 cubes after an edit and seeded random
+   batches of 16 and 1024, each timed launch only, beside the whole card
+   call, the plain walk, the bound and the critical path.
+6. step    — the step loop: the atrium stepped 30 ticks through the
+   device tick and through the per-cube host path (contents and cells
+   equal, light within one step); then the atrium (120 ticks) and
+   plaza640 (60 ticks) through `Universe.step` from `build_universe` on
+   the card, relit by `evaluate_light`, with a Become cycle of period 6
+   and a behavior that places and removes blocks every 10 ticks, after
+   36 ticks of warm-up: the median ms a step, its phases, the card's
+   busy share, light updates and queue, the rows K2 walked per listed
+   launch, K2 held against the plain walk on the timed ticks' batch
+   that walked the most rows, then a 1920x1080 frame of the
+   stepped world (K1, K3) held against a fresh snapshot's, the host
+   contents against the device's, and a palette-growing commit timed
+   apart; the launch counters read around the ticks and the frame.
+7. the kernels line (JSON; K2's listed mode as `relight_batch`, from
+   the atrium step's batch that walked the most rows), the
+   `nvidia-smi` line, and the last line {"ok": true, "device": {...}}.
 
 Needs CUDA and the `aic_tpu_torch` package beside this file; imports no
 JAX.
@@ -51,6 +72,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -273,13 +295,14 @@ def _fields_agree(out_k, out_p, fields, float_fields, label):
     return err
 
 
-def critical_path(ctx, lengths) -> tuple[int, int]:
+def critical_path(ctx, lengths, listed=None) -> tuple[int, int]:
     """The longest serial chain of pair steps in each K2 design, from the
     pair steps of each live (cube, chart ray) of the twin's walk (its
     `lengths` list): one thread per cube walks all of its cube's steps
     (max_cube_steps); a warp of the current kernel walks its share of the
     rays for the 32 listed cubes of its block in step, each ray as long as
-    its longest lane (max_warp_steps)."""
+    its longest lane (max_warp_steps). `listed` is the kernel's list of
+    cubes where it is not `ctx.kernel.cubes` (a queue round's batch)."""
     import torch
     from aic_tpu_torch.light import relight_kernel as rk
 
@@ -289,12 +312,13 @@ def critical_path(ctx, lengths) -> tuple[int, int]:
     steps = steps.long()
     dev = cube.device
     V = ctx.alpha0.numel()
-    kt, p = ctx.kernel, ctx.pairs
+    cubes = ctx.kernel.cubes if listed is None else listed
+    p = ctx.pairs
     R = p.cosines.shape[0]
     per_cube = torch.zeros(V, dtype=torch.long, device=dev).index_add_(0, cube, steps)
-    tiles = -(-kt.cubes.numel() // rk.TILE)
+    tiles = -(-cubes.numel() // rk.TILE)
     tile = torch.zeros(V, dtype=torch.long, device=dev)
-    tile[kt.cubes.long()] = torch.arange(kt.cubes.numel(), device=dev) // rk.TILE
+    tile[cubes.long()] = torch.arange(cubes.numel(), device=dev) // rk.TILE
     tile_ray = torch.zeros(tiles * R, dtype=torch.long, device=dev)
     tile_ray.scatter_reduce_(0, tile[cube] * R + ray, steps, "amax")
     warp = torch.empty(R, dtype=torch.long, device=dev)
@@ -422,13 +446,21 @@ def compare_converge(space, label, dev):
     from aic_tpu_torch.light import dense
     from aic_tpu_torch.light import relight_kernel as rk
 
-    got, passes = dense.evaluate_light_dense(space.snapshot(device=dev))
-    kernel_pass = dense.relight_pass
-    dense.relight_pass = rk.relight_pass_plain
-    try:
-        want, want_passes = dense.evaluate_light_dense(space.snapshot(device=dev))
-    finally:
-        dense.relight_pass = kernel_pass
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", dense.OverrelaxFellBack)
+        got, passes = dense.evaluate_light_dense(space.snapshot(device=dev))
+        kernel_pass = dense.relight_pass
+        dense.relight_pass = rk.relight_pass_plain
+        try:
+            want, want_passes = dense.evaluate_light_dense(space.snapshot(device=dev))
+        finally:
+            dense.relight_pass = kernel_pass
+    fell = [str(w.message) for w in caught if issubclass(w.category, dense.OverrelaxFellBack)]
+    for w in caught:
+        if not issubclass(w.category, dense.OverrelaxFellBack):
+            warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
+    if fell and label in ("atrium", "plaza640"):
+        fail(f"converged relight on {label}: the over-relaxed loop fell back to plain Jacobi: {fell}")
     a = got.light.cpu().numpy().astype(np.int32)
     b = want.light.cpu().numpy().astype(np.int32)
     step = int(np.abs(a[..., :3] - b[..., :3]).max())
@@ -437,7 +469,8 @@ def compare_converge(space, label, dev):
         fail(f"converged relight on {label}: {passes} passes vs plain {want_passes}, "
              f"{step} packed steps, status equal {status_equal}")
     phase("kernels", f"relight converged {label} (w={dense.OVERRELAX}): {passes} passes "
-          f"(plain {want_passes}), packed diff {step}, status equal")
+          f"(plain {want_passes}), packed diff {step}, status equal; fall-back to w = 1: "
+          f"{fell[0] if fell else 'none'}")
 
 
 def _local_rays(state, o, d):
@@ -779,6 +812,371 @@ def relight_stages(space, lit, dev) -> dict:
     return stages
 
 
+# -- the step loop -------------------------------------------------------------
+
+#: The step phases: ticks timed after STEP_WARMUP ticks of warm-up (the
+#: Become chain interns its frames over its first cycle; bench.py warms
+#: demo-city 35 steps), the Become cycle's period, and how often the
+#: placing behavior commits.
+STEP_TICKS = {"atrium": 120, "plaza640": 60}
+STEP_WARMUP = 36
+CYCLE_PERIOD = 6
+PLACE_EVERY = 10
+#: Ticks of the device tick against the per-cube host path.
+TICK_VS_HOST = 30
+
+
+def free_cubes(space, n):
+    """n air cubes that rest on a block, nearest the centre of the bounds
+    first (world coords)."""
+    c = space.contents
+    on_block = np.zeros(c.shape, bool)
+    on_block[:, 1:, :] = (c[:, 1:, :] == 0) & (c[:, :-1, :] != 0)
+    cand = np.argwhere(on_block)
+    order = np.argsort(((cand - np.asarray(c.shape) / 2) ** 2).sum(-1), kind="stable")
+    return [tuple(int(v + lo) for v, lo in zip(cand[i], space.bounds.lower)) for i in order[:n]]
+
+
+def make_placer(cubes, every):
+    """A behavior standing in for a player who places and removes blocks:
+    every `every` ticks it toggles each cube between air and the block
+    under it, blocks the palette already holds, so its commits scatter
+    onto the device state."""
+    from aic_tpu_torch import block
+    from aic_tpu_torch import universe as U
+
+    class Placer(U.Behavior):
+        def step(self, universe, host, tick):
+            sp = universe.spaces[host]
+            txn = U.SpaceTransaction()
+            for x, y, z in cubes:
+                cur = sp.block_at((x, y, z))
+                new = block.AIR if cur != block.AIR else sp.block_at((x, y - 1, z))
+                txn = txn.merge(U.SpaceTransaction.set_cube((x, y, z), old=cur, new=new))
+            return U.UniverseTransaction(spaces={host: txn}), every
+
+    return Placer()
+
+
+def cycle_world(space, n_cycle=4, n_placed=3):
+    """Put a two-frame Become cycle of period CYCLE_PERIOD on n_cycle free
+    cubes of the space, as demo-city places its signal; returns the cubes
+    left for the placer."""
+    from aic_tpu_torch import block
+    from aic_tpu_torch.content.exhibits import _become_cycle
+
+    frames = _become_cycle([block.from_color((1.0, 0.1, 0.1, 1.0), "signal-red"),
+                            block.from_color((0.1, 1.0, 0.1, 1.0), "signal-green")], period=CYCLE_PERIOD)
+    cubes = free_cubes(space, n_cycle + n_placed)
+    for i, c in enumerate(cubes[:n_cycle]):
+        space.set(c, frames[i % 2])
+    return cubes[n_cycle:]
+
+
+def timed_step(u) -> tuple[float, object]:
+    """One synchronized `Universe.step` on the host clock (ms)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    info = u.step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, info
+
+
+def step_world(name, camera, dev, reset_counts, read_counts) -> dict:
+    """The step loop's main path on one template: `build_universe` on the
+    card, the load relight through `evaluate_light`, a Become cycle and
+    the placer, STEP_WARMUP ticks, then STEP_TICKS[name] ticks timed one
+    by one and a 1920x1080 frame of the stepped world, with the launch
+    counters read around them. Checks the host contents against the
+    device's, the device cells against a fresh snapshot's, and the frame
+    against a frame of a fresh snapshot with the stepped light. Then 12
+    ticks with synchronized profiler spans for the phases, one cycle of
+    ticks under torch.profiler (the card's busy share), and a commit that
+    grows the palette (a resnapshot) timed apart."""
+    import dataclasses
+
+    import torch
+    from aic_tpu_torch import block
+    from aic_tpu_torch import universe as U
+    from aic_tpu_torch.content import build_universe
+    from aic_tpu_torch.light.update import evaluate_light
+    from aic_tpu_torch.raytrace import render
+
+    t0 = time.perf_counter()
+    u = build_universe(name, device=dev)
+    sp = u.spaces["world"]
+    placed = cycle_world(sp)
+    u.resnapshot("world")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, n = evaluate_light(u.states["world"], batch_size=1024, max_rounds=5000)
+    torch.cuda.synchronize()
+    relight_s = time.perf_counter() - t0
+    u.states["world"] = state
+    u.add_behavior("world", make_placer(placed, PLACE_EVERY))
+
+    warm = [timed_step(u)[0] for _ in range(STEP_WARMUP)]
+    reset_counts()
+    with walked_rows() as batches:
+        timed = [timed_step(u) for _ in range(STEP_TICKS[name])]
+    t0 = time.perf_counter()
+    frame = render(u.states["world"], camera)
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    ms = [t for t, _ in timed]
+    infos = [i for _, i in timed]
+    device_ticks = sum(1 for i in infos if i._device_stats)
+    updates = sum(i.light_updates for i in infos)
+    queue = infos[-1].light_queue
+    walked = [int(w) for w, _ in batches]
+    busiest = batches[int(np.argmax(walked))][1] if batches else None
+    del batches
+
+    st = u.states["world"]
+    if not np.array_equal(sp.contents.astype(np.int32), st.contents.cpu().numpy()):
+        fail(f"step {name}: the host Space's contents differ from the device contents")
+    fresh = dataclasses.replace(sp.snapshot(device=dev), light=st.light)
+    if not torch.equal(fresh.cells, st.cells):
+        fail(f"step {name}: the stepped cells differ from a fresh snapshot's")
+    check_frame(frame, st, f"step {name}")
+    ref = render(fresh, camera)
+    far = (np.abs(frame.data.astype(np.int32) - ref.data.astype(np.int32)) > 1).any(-1)
+    if far.sum() > PIXEL_MAX_SHARE * far.size:
+        fail(f"step {name}: {int(far.sum())} pixels of the stepped frame differ from a fresh snapshot's")
+
+    u.profiler.reset()
+    u.profiler.sync = torch.cuda.synchronize
+    for _ in range(12):
+        u.step()
+    u.profiler.sync = None
+    spans = {k: round(v.total_s * 1e3 / v.calls, 3) for k, v in u.profiler.spans.items()}
+    profiled = profiled_frame(lambda: [u.step() for _ in range(CYCLE_PERIOD)])
+    rounds = round_stages(u.states["world"], u.light_batch_size)
+
+    grow = U.UniverseTransaction(spaces={"world": U.SpaceTransaction.set_cube(
+        placed[0], new=block.from_color((0.3, 0.6, 0.9, 1.0), "grown"))})
+    pal = sp.palette_len()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grow.execute(u)
+    torch.cuda.synchronize()
+    grow_ms = (time.perf_counter() - t0) * 1e3
+    if sp.palette_len() != pal + 1 or u.states["world"].tables.face_colors[sp.palette_len() - 1, 6, 3] <= 0:
+        fail(f"step {name}: the palette-growing commit did not resnapshot")
+
+    med = float(np.median(ms))
+    phase("step", f"{name} {tuple(st.contents.shape)}: built + snapshotted {build_s:.3f} s, load relight "
+          f"(evaluate_light) {n} cube updates in {relight_s:.3f} s; warm-up {STEP_WARMUP} ticks: first "
+          f"{warm[0]:.1f} ms, median {float(np.median(warm)):.3f} ms; {len(ms)} ticks: median {med:.3f} ms a step "
+          f"(mean {float(np.mean(ms)):.3f}, min {min(ms):.3f}, max {max(ms):.3f}), {device_ticks} device-ticked; "
+          f"light updates {updates}, queue after {queue}; rows K2 walked per listed launch: "
+          f"mean {float(np.mean(walked)) if walked else 0:.2f} of {u.light_batch_size}, max {max(walked, default=0)}, "
+          f"{sum(w == 0 for w in walked)} of {len(walked)} launches walked none; "
+          f"phases (ms a tick, synchronized spans, 12 ticks) "
+          f"{spans}; a light round's stages (ms, median of 5, synchronized) {rounds}; "
+          f"{CYCLE_PERIOD} ticks under torch.profiler: {profiled}; "
+          f"frame {camera.viewport.width}x{camera.viewport.height} {frame_ms:.1f} ms, equal to a fresh snapshot's ({int(far.sum())} pixels "
+          f"over 1); host contents = device contents; palette-growing commit (resnapshot) {grow_ms:.1f} ms; "
+          f"launches {counts}")
+    if busiest is None or max(walked) == 0:
+        fail(f"step {name}: no listed K2 launch of the timed ticks walked a row")
+    batch = check_batch(*busiest, name, f"busiest step round ({max(walked)} walked)")
+    return dict(counts=counts, median_ms=med, ticks=len(ms), spans=spans, batch=batch)
+
+
+class walked_rows:
+    """Within the block, every batch `relight_batch_cuda` makes inputs
+    for is kept as (walked rows, (state, cubes, valid)), the count a
+    tensor on the card, so the ticks read nothing back."""
+
+    def __enter__(self):
+        from aic_tpu_torch.light import update
+
+        self.update, self.real, self.batches = update, update.listed_inputs, []
+
+        def counting(state, cubes, valid):
+            args, org = self.real(state, cubes, valid)
+            self.batches.append((args[6].any(-1).sum(), (state, cubes, valid)))
+            return args, org
+
+        update.listed_inputs = counting
+        return self.batches
+
+    def __exit__(self, *exc):
+        self.update.listed_inputs = self.real
+        return False
+
+
+def round_stages(state, batch_size) -> dict:
+    """One queue round of the stepped state, a stage at a time (host clock,
+    synchronized, median of 5): the selection, `relight_batch` (the
+    origins, the volume's light decode, the K2 launch, `finish`), and the
+    whole round, whose rest is the scatters and re-enqueue."""
+    from aic_tpu_torch.light import update
+
+    runs: dict = {}
+    for _ in range(5):
+        st: dict = {}
+        pos, valid, _ = stage(st, "select", lambda: update.select_batch(state.light_dirty, batch_size))
+        stage(st, "relight_batch", lambda: update.relight_batch(state, pos, valid))
+        stage(st, "round", lambda: update.light_update_round(state, batch_size))
+        st["scatter_and_rest"] = st["round"] - st["select"] - st["relight_batch"]
+        for k, v in st.items():
+            runs.setdefault(k, []).append(v)
+    return {k: round(float(np.median(v)), 3) for k, v in runs.items()}
+
+
+def batch_cases(state, seed=0) -> dict:
+    """K2's batches: a first queue round's 16 cubes after an edit of
+    the relit state (the block nearest the centre removed), and seeded
+    random batches of 16 and 1024 distinct cubes (every fourth row
+    padding)."""
+    import torch
+    from aic_tpu_torch.light.update import select_batch
+    from aic_tpu_torch.space.state import scatter_set_cubes
+
+    dev = state.device
+    shape = tuple(state.contents.shape)
+    solid = np.argwhere(state.contents.cpu().numpy() != 0)
+    mid = solid[np.argmin(((solid - np.asarray(shape) / 2) ** 2).sum(-1))]
+    edited = scatter_set_cubes(state, torch.as_tensor(mid[None], device=dev),
+                               torch.zeros(1, dtype=torch.int32, device=dev))
+    pos, valid, _ = select_batch(edited.light_dirty, 16)
+    cases = {"first round": (edited, pos, valid)}
+    rng = np.random.default_rng(seed)
+    for n in (16, 1024):
+        flat = rng.choice(int(np.prod(shape)), size=n, replace=False)
+        cubes = np.stack(np.unravel_index(flat, shape), -1)
+        cases[f"random {n}"] = (state, torch.as_tensor(cubes, device=dev),
+                                torch.as_tensor(np.arange(n) % 4 != 3, device=dev))
+    return cases
+
+
+def listed_work(state, cubes, valid) -> tuple[dict, int, tuple[int, int]]:
+    """The plain pass's work counts, the bytes the kernel needs for the
+    batch's walks, and the critical path of the listed launch: the plain
+    twin over a context whose only weighted cubes are the batch's walked
+    rows. Bytes: the batch's rows in and out, the pair tables, one mask
+    byte a step, and for a visible step its cube's index, face row and
+    two light reads."""
+    import torch
+    from aic_tpu_torch.light import dense
+    from aic_tpu_torch.light import relight_kernel as rk
+    from aic_tpu_torch.light import update
+    from aic_tpu_torch.math import lightpack
+
+    (contents, light_rgb, rows, _mask, p, flat_all, dw_rows, a0_rows), _org = update.listed_inputs(state, cubes, valid)
+    X, Y, Z = contents.shape
+    walked = dw_rows.any(-1)
+    flat = flat_all.long()[walked]
+    dw = torch.zeros((X * Y * Z, 6), device=state.device)
+    dw[flat] = dw_rows[walked]
+    alpha0 = torch.ones(X * Y * Z, device=state.device)
+    alpha0[flat] = a0_rows[walked]
+    ctx = dense.RelightCtx(dir_weights=dw.reshape(X, Y, Z, 6), alpha0=alpha0.reshape(X, Y, Z),
+                           incoming0=None, origin_opaque=torch.zeros((X, Y, Z), dtype=torch.bool, device=state.device),
+                           origin_emission=None, pairs=p, kernel=None)
+    work: dict = {}
+    lengths: list = []
+    rk.relight_pass_plain(contents, light_rgb, rows, ctx, work=work, lengths=lengths)
+    path = critical_path(ctx, lengths, listed=flat_all)
+    n = cubes.shape[0]
+    moved = (n * (12 + 24 + 4 + 16 + 4) + nbytes(p.cosines, p.sky_ray, p.ray_start, p.ray_id, p.words, p.warp_start)
+             + work.get("steps", 0) + work.get("visible", 0) * (4 + 32 + 24))
+    return work, moved, path
+
+
+def compare_batch(state, label) -> dict:
+    """K2 over a queue round's batch on each of `batch_cases`
+    (`check_batch`). Returns {batch label: `check_batch`'s tuple}."""
+    return {blabel: check_batch(st, cubes, valid, label, blabel)
+            for blabel, (st, cubes, valid) in batch_cases(state).items()}
+
+
+def check_batch(st, cubes, valid, label, blabel) -> tuple:
+    """K2 over one batch (`relight_batch_cuda`: one listed launch) against
+    the plain `relight_batch` walk on it: packed light within one step
+    and statuses equal on the valid rows, padding rows 0, one launch a
+    call. Times the listed launch alone (inputs made first, `launch_ms`),
+    the whole card call and the plain walk, beside the bound from the
+    batch's own walks. Returns (max abs err, launch ms, plain ms, bound
+    ms, bound by, call ms)."""
+    import torch
+    from aic_tpu_torch.light import relight_kernel as rk
+    from aic_tpu_torch.light import update
+    from aic_tpu_torch.math import lightpack
+
+    before = rk.LAUNCHES_LISTED
+    got = update.relight_batch_cuda(st, cubes, valid)
+    torch.cuda.synchronize()
+    if rk.LAUNCHES_LISTED != before + 1:
+        fail(f"relight batch {label} {blabel}: {rk.LAUNCHES_LISTED - before} listed launches, not 1")
+    want = update.relight_batch_plain(st, cubes, valid)
+    a, b = got.cpu().numpy().astype(np.int32), want.cpu().numpy().astype(np.int32)
+    v = valid.cpu().numpy()
+    step = int(np.abs(a[v, :3] - b[v, :3]).max(initial=0))
+    if step > RELIGHT_MAX_STEP or not np.array_equal(a[v, 3], b[v, 3]) or a[~v].any():
+        fail(f"relight batch {label} {blabel}: {step} packed steps, statuses equal "
+             f"{np.array_equal(a[v, 3], b[v, 3])}, padding rows zero {not a[~v].any()}")
+    # The launch alone, on the inputs relight_batch_cuda makes for it.
+    args, _org = update.listed_inputs(st, cubes, valid)
+    walked = args[6].any(-1)
+    ms_launch = launch_ms(lambda: rk.relight_listed_cuda(*args), 50)
+    ms_call = cuda_ms(lambda: update.relight_batch_cuda(st, cubes, valid), 20)
+    ms_plain = cuda_ms(lambda: update.relight_batch_plain(st, cubes, valid), 3)
+    ms_decode = cuda_ms(lambda: lightpack.decode_rgb(st.light).contiguous(), 20)
+    work, moved, (max_cube, max_warp) = listed_work(st, cubes, valid)
+    b_ms, b_by = bound("relight_pass", moved, work)
+    err = float(step)
+    phase("kernels", f"relight batch {label} {blabel}: {int(valid.sum())} valid of {cubes.shape[0]} rows, "
+          f"{int(walked.sum())} walked; packed diff {step}, statuses equal, padding 0; listed launch "
+          f"{ms_launch:.4f} ms (launch only), whole card call {ms_call:.3f} ms (of which the volume's "
+          f"light decode {ms_decode:.3f} ms), plain walk {ms_plain:.3f} ms; bound {b_ms:.5f} ms ({b_by}), "
+          f"{b_ms / ms_launch:.1%} of it; critical path: max_cube_steps {max_cube}, max_warp_steps "
+          f"{max_warp}; work {work}")
+    return err, ms_launch, ms_plain, b_ms, b_by, ms_call
+
+
+def check_device_tick_vs_host(dev) -> None:
+    """The same atrium world with a Become cycle, stepped TICK_VS_HOST
+    ticks through the device tick and through the per-cube host path on
+    the card, from one relit state: contents and cells equal, packed
+    light within one step, statuses equal."""
+    import torch
+    from aic_tpu_torch.content import atrium
+    from aic_tpu_torch.light.update import evaluate_light
+    from aic_tpu_torch.universe import Universe
+
+    us = []
+    lit = None
+    for host_path in (False, True):
+        u = Universe(device=dev)
+        sp = atrium()
+        cycle_world(sp)
+        u.insert_space("world", sp)
+        if lit is None:
+            lit, _ = evaluate_light(u.states["world"], batch_size=1024, max_rounds=5000)
+        u.states["world"] = lit
+        if host_path:
+            u._tick_plan = lambda name: None
+        ms = [timed_step(u)[0] for _ in range(TICK_VS_HOST)]
+        us.append((u, float(np.median(ms))))
+    (ud, ms_dev), (uh, ms_host) = us
+    a, b = ud.states["world"], uh.states["world"]
+    if not (torch.equal(a.contents, b.contents) and torch.equal(a.cells, b.cells)):
+        fail("device tick vs host path: contents or cells differ")
+    la, lb = a.light.cpu().numpy().astype(np.int32), b.light.cpu().numpy().astype(np.int32)
+    step = int(np.abs(la[..., :3] - lb[..., :3]).max())
+    if step > RELIGHT_MAX_STEP or not np.array_equal(la[..., 3], lb[..., 3]):
+        fail(f"device tick vs host path: light {step} packed steps apart")
+    phase("kernels", f"device tick vs host path, atrium, {TICK_VS_HOST} ticks: contents and cells equal, "
+          f"packed light diff {step}, statuses equal; median step {ms_dev:.3f} ms (device tick) vs "
+          f"{ms_host:.3f} ms (host path)")
+
+
 def check_frame(frame, state, label):
     if frame.flaws:
         fail(f"{label}: render flaws {frame.flaws}")
@@ -818,6 +1216,12 @@ def main() -> None:
     from aic_tpu_torch.raytrace.render import finish_frame
     from aic_tpu_torch.space import Sky, Space, SpacePhysics
 
+    from aic_tpu_torch.light.dense import OverrelaxFellBack
+
+    # The main paths' relights (the atrium, plaza640, the step worlds'
+    # loads) converge at w = OVERRELAX without falling back to plain
+    # Jacobi; compare_converge records the fall-back where it is expected.
+    warnings.simplefilter("error", OverrelaxFellBack)
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -876,13 +1280,13 @@ def main() -> None:
     del plaza_state, atrium_state
 
     def reset_counts():
-        rk.LAUNCHES = rk.LAUNCHES_DYN = tk.LAUNCHES = v1.LAUNCHES = 0
+        rk.LAUNCHES = rk.LAUNCHES_DYN = rk.LAUNCHES_LISTED = tk.LAUNCHES = v1.LAUNCHES = 0
         torch.cuda.synchronize()
 
     def read_counts():
         torch.cuda.synchronize()
         return {"relight_pass": rk.LAUNCHES, "relight_pass_dyn": rk.LAUNCHES_DYN,
-                "trace_megakernel": tk.LAUNCHES, "trace_v1": v1.LAUNCHES}
+                "relight_batch": rk.LAUNCHES_LISTED, "trace_megakernel": tk.LAUNCHES, "trace_v1": v1.LAUNCHES}
 
     def relight_and_render(space, camera):
         t0 = time.perf_counter()
@@ -921,6 +1325,7 @@ def main() -> None:
     phase("slice", f"atrium 1920x1080 smoothstep: {frame_ms:.1f} ms/frame warm "
           f"({1920 * 1080 / frame_ms / 1e3:.2f} Mrays/s), alpha coverage {coverage:.3f}")
     phase("slice", f"atrium relight stages (ms): {relight_stages(atrium_space, state, dev)}")
+    compare_batch(state, "atrium")
     del state
 
     # 5. the second main path: plaza640, through the v1 kernel
@@ -970,8 +1375,23 @@ def main() -> None:
     phase("slice", f"plaza640 warm frame under torch.profiler: {profiled_frame(lambda: render(state, plaza_cam))}")
     phase("kernels", f"trace_v1 at the atrium 1920x1080 launch state: {trace_v1_atrium[1]:.3f} ms "
           f"(plain {trace_v1_atrium[2]:.3f} ms, bound {trace_v1_atrium[3]:.4f} ms)")
+    compare_batch(state, "plaza640")
+    del state
+
+    # 6. the step loop: the device tick against the host path, then the
+    # atrium and plaza640 stepped through Universe.step, each followed by
+    # a frame (K1, K3).
+    check_device_tick_vs_host(dev)
+    steps = {}
+    for name, camera, trace_kernel in (("atrium", cam, "trace_megakernel"), ("plaza640", plaza_cam, "trace_v1")):
+        steps[name] = step_world(name, camera, dev, reset_counts, read_counts)
+        c = steps[name]["counts"]
+        if c["relight_batch"] <= 0 or c[trace_kernel] <= 0:
+            fail(f"step {name}: the main path launched no {'relight_batch' if c['relight_batch'] <= 0 else trace_kernel}: {c}")
+        phase("step", f"{name}: {c['relight_batch'] / steps[name]['ticks']:.2f} K2 listed launches a tick")
 
     counts = {k: atrium_counts[k] + plaza_counts[k] for k in atrium_counts}
+    counts["relight_batch"] = sum(st["counts"]["relight_batch"] for st in steps.values())
     rows = [
         ("trace_megakernel", "aic_tpu_torch/csrc/trace.cu", "aic_tpu/raytrace/pallas_trace.py:1140", trace),
         ("relight_pass", "aic_tpu_torch/csrc/relight.cu", "aic_tpu/light/pallas_relight.py:338",
@@ -979,6 +1399,8 @@ def main() -> None:
         ("relight_pass_dyn", "aic_tpu_torch/csrc/relight.cu", "aic_tpu/light/pallas_relight.py:338",
          relight["relight_pass_dyn"]),
         ("trace_v1", "aic_tpu_torch/csrc/trace_v1.cu", "aic_tpu/raytrace/pallas_trace.py:198", trace_v1),
+        ("relight_batch", "aic_tpu_torch/csrc/relight.cu", "aic_tpu/light/pallas_relight.py:338",
+         steps["atrium"]["batch"][:5]),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

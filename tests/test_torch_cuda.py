@@ -336,3 +336,78 @@ def test_trace_v1_walking_list_frame_matches_all_rays(cuda_device, monkeypatch):
     monkeypatch.setattr(trace_kernel_v1, "trace_phases_v1", trace_kernel_v1.trace_phases_all_rays)
     b = trace_kernel.trace_rays_kernel(st, o, d, opts, megakernel=False)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and a[2] == b[2]
+
+
+# -- the step loop: K2 over a queue round's batch, the device tick ----------------
+
+
+@pytest.mark.parametrize("scene", ["mixed", "cornell16"])
+def test_relight_batch_listed_matches_plain(cuda_device, scene):
+    """`relight_batch` on the card is one listed K2 launch; its packed light
+    is within one step of the plain walk's on the valid rows, statuses
+    equal, padding rows 0, for a first round's batch and random batches."""
+    from aic_tpu_torch.light import update
+    from aic_tpu_torch.light.update import evaluate_light
+
+    space = chip_smoke.relight_scene(PKG) if scene == "mixed" else cornell_box(16)
+    st, _ = evaluate_light(space.snapshot(device=cuda_device))
+    for label, (s2, cubes, valid) in chip_smoke.batch_cases(st).items():
+        before = relight_kernel.LAUNCHES_LISTED
+        got = update.relight_batch(s2, cubes, valid)
+        assert relight_kernel.LAUNCHES_LISTED == before + 1, label
+        want = update.relight_batch_plain(s2, cubes, valid)
+        a, b = got.cpu().numpy().astype(np.int32), want.cpu().numpy().astype(np.int32)
+        v = valid.cpu().numpy()
+        assert np.abs(a[v, :3] - b[v, :3]).max() <= 1, label
+        np.testing.assert_array_equal(a[v, 3], b[v, 3], err_msg=label)
+        assert not a[~v].any(), label
+
+
+def test_relight_batch_two_launches_bit_equal(cuda_device):
+    from aic_tpu_torch.light import update
+
+    st, _ = fast_evaluate_seed(cornell_box(16).snapshot(device=cuda_device))
+    cubes = torch.as_tensor(np.stack(np.unravel_index(np.arange(0, 4096, 37), (16, 16, 16)), -1), device=cuda_device)
+    valid = torch.ones(cubes.shape[0], dtype=torch.bool, device=cuda_device)
+    assert torch.equal(update.relight_batch(st, cubes, valid), update.relight_batch(st, cubes, valid))
+
+
+def test_relight_batch_after_an_edit_equals_fresh_tables(cuda_device):
+    """A batch relit after an edit, with the pre-edit state's mask and pair
+    tables cached, equals the same batch relit with every cache emptied."""
+    from aic_tpu_torch.light import dense, update
+    from aic_tpu_torch.space.state import scatter_set_cubes
+
+    st, _ = fast_evaluate_seed(cornell_box(16).snapshot(device=cuda_device))
+    cubes = torch.as_tensor(np.stack(np.unravel_index(np.arange(0, 4096, 37), (16, 16, 16)), -1), device=cuda_device)
+    valid = torch.ones(cubes.shape[0], dtype=torch.bool, device=cuda_device)
+    update.relight_batch(st, cubes, valid)
+    edited = scatter_set_cubes(st, torch.as_tensor([[8, 8, 8], [3, 1, 3]], device=cuda_device),
+                               torch.as_tensor([0, int(st.contents[0, 0, 0])], dtype=torch.int32, device=cuda_device))
+    got = update.relight_batch(edited, cubes, valid)
+    update._FACE_MASKS.clear()
+    dense._DEVICE_PAIRS.clear()
+    assert torch.equal(got, update.relight_batch(edited, cubes, valid))
+
+
+def test_universe_steps_on_the_card_like_the_cpu(cuda_device):
+    """The same small world stepped 12 ticks on the card (device tick, K2
+    over each round's batch) and on the CPU (the plain walk): contents
+    and cells equal, packed light within one step, bodies within 1e-4."""
+    from aic_tpu_torch.content import TemplateParameters, build_universe
+
+    us = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        u = build_universe("cornell-box", TemplateParameters(size=12), device=dev)
+        chip_smoke.cycle_world(u.spaces["world"])
+        u.resnapshot("world")
+        u.add_behavior("world", chip_smoke.make_placer(chip_smoke.free_cubes(u.spaces["world"], 2), 3))
+        for _ in range(12):
+            u.step()
+        us[dev.type] = u
+    a, b = us["cuda"].states["world"], us["cpu"].states["world"]
+    assert torch.equal(a.contents.cpu(), b.contents) and torch.equal(a.cells.cpu(), b.cells)
+    la, lb = a.light.cpu().numpy().astype(np.int32), b.light.numpy().astype(np.int32)
+    assert np.abs(la[..., :3] - lb[..., :3]).max() <= 1
+    np.testing.assert_array_equal(la[..., 3], lb[..., 3])
+    np.testing.assert_allclose(us["cuda"].bodies.position.cpu().numpy(), us["cpu"].bodies.position.numpy(), atol=1e-4)
