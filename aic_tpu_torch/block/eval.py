@@ -2,9 +2,8 @@
 
 Copied unchanged from `aic_tpu/block/eval.py`: the port carries its own jax-free
 copy because `aic_tpu`'s package imports pull in JAX. The text-primitive
-and Become-composition branches import `..text` and `..universe.op`,
-which the port does not have yet: evaluating such a block raises
-ModuleNotFoundError until those modules are ported.
+branch rasterizes through the port's `..text` (PIL's masks read from a
+vendored table, the system-16 atlas decoded without an imaging library).
 
 Equivalent of the reference's `Block::evaluate` pipeline
 (all-is-cubes/src/block.rs:568 → block/eval/): flatten a block's primitive

@@ -3,11 +3,12 @@
 Port of `aic_tpu/space/space.py`. The host side (palette dedup, block
 evaluation, `set`/`fill`, the fast light seed, and what transactions
 and the step loop read: `palette_len`, `block_at`, `index_at`, the
-palette `epoch`, `reevaluate_palette`) is copied unchanged;
-`snapshot(device=...)` builds the same numpy tables and packed cells
-and hands them over with `torch.as_tensor`. Left out until later slices:
-`extract`, `absorb`, `distinct_blocks`, and the edit journal
-(`drain_edits`), whose reader in `aic_tpu` is the mesh updater.
+palette `epoch`, `reevaluate_palette`, `distinct_blocks`, `extract`)
+is copied unchanged; `snapshot(device=...)` builds the same numpy
+tables and packed cells and hands them over with `torch.as_tensor`, and
+`absorb` copies a state's tensors back. Left out until a later slice:
+the edit journal (`drain_edits`), whose reader in `aic_tpu` is the mesh
+updater.
 """
 
 from __future__ import annotations
@@ -112,6 +113,12 @@ class Space:
             self.epoch += 1
         return freed
 
+    def distinct_blocks(self) -> list[Block]:
+        """Blocks currently present in the space, in palette-index order
+        (space.rs distinct_blocks)."""
+        counts = np.bincount(self.contents.ravel(), minlength=len(self._palette))
+        return [b for i, b in enumerate(self._palette) if counts[i] > 0]
+
     def reevaluate_palette(self):
         """Re-run evaluation for all palette entries (the step loop's
         `Synchronize` phase for changed BlockDefs)."""
@@ -120,6 +127,9 @@ class Space:
 
     def evaluated(self, index: int) -> EvaluatedBlock:
         return self._evaluated[index]
+
+    def evaluated_block_at(self, cube) -> EvaluatedBlock:
+        return self._evaluated[int(self.contents[self._rel(cube)])]
 
     def block_at(self, cube) -> Block:
         return self._palette[int(self.contents[self._rel(cube)])]
@@ -164,6 +174,25 @@ class Space:
         # Also dirty the one-cube border around the region.
         border = region.expand(1).intersection(self.bounds)
         self.light_dirty[border.to_slices(self.bounds)] = 255
+
+    def extract(self, region: GridAab) -> "Space":
+        """Copy a sub-region into a new Space (space.rs extract, returning
+        a Space); raises when the region is not inside the bounds."""
+        if region.intersection(self.bounds).volume() != region.volume():
+            raise IndexError(
+                f"extract region {region} is outside of the Space bounds {self.bounds}"
+            )
+        out = Space(region, physics=self.physics)
+        sl = region.to_slices(self.bounds)
+        src = self.contents[sl]
+        if src.size:
+            remap = {}
+            for idx in np.unique(src):
+                remap[int(idx)] = out.ensure_block(self._palette[int(idx)])
+            out.contents = np.vectorize(remap.get, otypes=[np.uint16])(src)
+        out.light = self.light[sl].copy()
+        out.light_dirty = self.light_dirty[sl].copy()
+        return out
 
     def _mark_light_dirty_around(self, rel):
         x, y, z = rel
@@ -340,6 +369,13 @@ class Space:
             light_max_distance=self.physics.light_max_distance,
             light_enabled=self.physics.light_enabled,
         )
+
+    def absorb(self, state: SpaceState):
+        """Copy a state's contents and light back into the host mirror
+        (read-back after simulation, for save/load and content edits)."""
+        self.contents = state.contents.cpu().numpy().astype(self.contents.dtype)
+        self.light = state.light.cpu().numpy().copy()
+        self.light_dirty = state.light_dirty.cpu().numpy().copy()
 
 
 def _round_up(x: int, m: int) -> int:

@@ -1,5 +1,5 @@
-"""Layer 1e: Universe container, transactions, operations, behaviors and
-the step loop (port of `aic_tpu/universe`; the cursor tools and sound
+"""Layer 1e: Universe container, transactions, operations, behaviors, the
+step loop and the cursor tools (port of `aic_tpu/universe`; the sound
 members come later, ROADMAP A7)."""
 
 from .op import (
@@ -23,6 +23,23 @@ from .transaction import (
     UniverseTransaction,
 )
 from .universe import Behavior, Character, Clock, Tick, Universe, UniverseStepInfo
+from .cursor import (
+    Activate,
+    CopyFromSpace,
+    Cursor,
+    CustomTool,
+    Inventory,
+    InventoryConflict,
+    InventoryTransaction,
+    PlaceBlock,
+    RemoveBlock,
+    Stack,
+    Tool,
+    click,
+    cursor_raycast,
+    free_editing_inventory,
+    stack_limit,
+)
 
 __all__ = [
     "AddModifiers", "Alt", "Become", "DestroyTo", "MoveInwards",
@@ -30,4 +47,8 @@ __all__ = [
     "OperationFailed", "CubeEdit", "Fluff", "PreconditionFailed", "SpaceTransaction",
     "TransactionConflict", "UniverseTransaction", "Behavior", "Character",
     "Clock", "Tick", "Universe", "UniverseStepInfo",
+    "Activate", "CopyFromSpace", "Cursor", "CustomTool", "Inventory",
+    "InventoryConflict", "InventoryTransaction", "PlaceBlock",
+    "RemoveBlock", "Stack", "Tool", "click", "cursor_raycast",
+    "free_editing_inventory", "stack_limit",
 ]

@@ -18,7 +18,8 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    falls back to plain Jacobi, which is printed; anywhere else in the run
    a fall-back is a failure); the traversal
    megakernel (K1) on small atom, voxel and R32 scenes and on the atrium
-   at 1920×1080; the v1 surface
+   and `plaza640` at 1920×1080 (plaza640's frame takes v1: K1 there is
+   timed for comparison); the v1 surface
    finder (K3) on the atom and voxel scenes (first launch, and the inner
    round) and on the atrium and `plaza640` 1920×1080 launch states. Then
    both trace paths on the same 1920×1080 rays, atrium and `plaza640`.
@@ -57,9 +58,20 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    stepped world (K1, K3) held against a fresh snapshot's, the host
    contents against the device's, and a palette-growing commit timed
    apart; the launch counters read around the ticks and the frame.
-7. the kernels line (JSON; K2's listed mode as `relight_batch`, from
-   the atrium step's batch that walked the most rows), the
-   `nvidia-smi` line, and the last line {"ok": true, "device": {...}}.
+7. city    — demo-city (96x28x96, its exhibits, R32 blocks and wide
+   classify pages) from `build_universe("demo-city")` on the card, the
+   content build and the snapshot timed apart: K2 (both variants) and K1
+   (1920x1080, every field) against their twins on its state; then, with
+   the counters set to 0, `evaluate_light` (the fall-back to w = 1
+   printed, not an error), a 1920x1080 frame, 35 + 60 steps as bench.py's
+   `step_demo_city_ms` steps it (each synchronized; palette-growing steps
+   apart) and a frame of the stepped world; the counters read. Then the
+   busiest timed batch against the plain walk, the phases' spans and a
+   palette-growing commit.
+8. the kernels line (JSON; K2's listed mode as `relight_batch`, from
+   the atrium step's batch that walked the most rows; launches summed
+   over every main path, demo-city's included), the `nvidia-smi` line,
+   and the last line {"ok": true, "device": {...}}.
 
 Needs CUDA and the `aic_tpu_torch` package beside this file; imports no
 JAX.
@@ -92,20 +104,22 @@ PIXEL_MAX_SHARE = 1e-4
 #: Bounds: one H100 SXM's HBM rate and float32 rate outside the tensor
 #: cores (NVIDIA's data sheet), and each kernel's operations per unit of
 #: the work its plain twin counts on the same inputs (the twins' `work`),
-#: counted by hand from the CUDA sources along each branch (K2's and K3's
-#: counted from their SASS): one per arithmetic, comparison, logic, shift,
-#: min/max, conversion or select, one per library call (floorf, fabsf,
-#: fmodf, sqrtf), table index arithmetic included; none for loads and
-#: stores (the bytes' side), register moves, a branch on a computed flag,
-#: or loop-invariant set-up on the uniform datapath. All count at the f32
-#: rate, the card's highest outside the tensor cores, so the bound stays a
-#: least time. PERF.md ("Operation counts") gives the derivation.
+#: counted from each kernel's SASS along each branch: one per arithmetic,
+#: comparison, logic, shift, min/max, conversion, select or special-function
+#: instruction, table index arithmetic included; none for loads and stores
+#: (the bytes' side), register moves, a branch on a computed flag, a
+#: division's slow path, or loop-invariant set-up on the uniform datapath.
+#: Where one branch of a count runs one of two paths (K1: an inner or an
+#: outer step, a narrow or a wide page, an R32 octant hop or not), the
+#: shorter path counts. All count at the f32 rate, the card's highest
+#: outside the tensor cores, so the bound stays a least time. PERF.md
+#: ("Operation counts") gives the derivation.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 OPS = {
     "trace_megakernel": {
-        "rays": 82, "iters": 12, "outer_iters": 22, "macro_steps": 114, "steps": 55,
-        "outer_steps": 11, "tests": 24, "hits": 2, "restores": 3, "classify": 35, "pushes": 88,
+        "rays": 97, "iters": 14, "outer_iters": 5, "macro_steps": 84, "steps": 49,
+        "outer_steps": 3, "tests": 15, "hits": 4, "restores": 3, "classify": 29, "pushes": 115,
     },
     "trace_v1": {
         "rays": 35, "walking": 20, "outer_iters": 6, "macro_steps": 86, "steps": 23,
@@ -1193,6 +1207,209 @@ def check_frame(frame, state, label):
     return coverage
 
 
+# -- demo-city ----------------------------------------------------------------
+
+#: Demo-city's step as bench.py's `step_demo_city_ms` steps it
+#: (bench.py:217-238): 35 ticks of warm-up, then 60 timed; each step here
+#: is synchronized and timed alone.
+CITY_WARMUP = 35
+CITY_TICKS = 60
+
+
+class timed_calls:
+    """Within the block, the host-clock seconds spent in `owner.name`
+    (a function or method), synchronized at its end; the list holds one
+    entry a call."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.calls = owner, name, []
+
+    def __enter__(self):
+        import torch
+
+        real = self.real = getattr(self.owner, self.name)
+        calls = self.calls
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            if torch.cuda.is_initialized():
+                torch.cuda.synchronize()
+            calls.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.owner, self.name, timed)
+        return calls
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.real)
+        return False
+
+
+def city_world(dev, opts, reset_counts, read_counts) -> dict:
+    """Demo-city (`aic_tpu`'s showcase world, 96x28x96 with its exhibits)
+    through the port's entry points: `build_universe("demo-city")` on the
+    card (the host content build and the snapshot timed apart; every text
+    mask from the vendored table); K2 (full and light-only) held against
+    the plain pass and K1 against its twin on the 1920x1080 rays of
+    `main.default_camera`, every field, on the built state (its R32 octant
+    rows and wide classify pages); then, with the launch counters set to 0,
+    the main path: `evaluate_light` (the fall-back to w = 1 recorded, not
+    an error), a 1920x1080 frame, CITY_WARMUP + CITY_TICKS steps timed one
+    by one (palette-growing steps apart), and a frame of the stepped world;
+    the counters read. Then the busiest timed batch against the plain
+    walk, the stepped frame against a fresh snapshot's, the phases' spans
+    and a palette-growing commit timed apart."""
+    import dataclasses
+
+    import torch
+    from aic_tpu_torch import block
+    from aic_tpu_torch import universe as U
+    from aic_tpu_torch.content import TemplateParameters, build_universe
+    from aic_tpu_torch.content import exhibits
+    from aic_tpu_torch.light import dense
+    from aic_tpu_torch.light.update import evaluate_light
+    from aic_tpu_torch.main import default_camera
+    from aic_tpu_torch.raytrace import render
+    from aic_tpu_torch.raytrace import trace_kernel as tk
+    from aic_tpu_torch.space import Space
+    from aic_tpu_torch.text import font
+
+    font.rasterize_text.cache_clear()
+    with timed_calls(Space, "snapshot") as snaps, timed_calls(font, "rasterize_pil") as drawn, \
+            timed_calls(exhibits, "place_exhibit") as placed:
+        t0 = time.perf_counter()
+        u = build_universe("demo-city", TemplateParameters(seed=0, size=96), device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    sp, st = u.spaces["world"], u.states["world"]
+    if tuple(st.contents.shape) != (96, 28, 96):
+        fail(f"demo-city: contents {tuple(st.contents.shape)}, not 96x28x96")
+    if drawn:
+        fail(f"demo-city: {len(drawn)} strings were drawn with PIL, not read from the vendored table")
+    if not tk.megakernel_fits(st):
+        fail("demo-city: its megakernel tables do not fit: it would not take K1")
+    ctx = tk.get_bitmask_ctx2(st)
+    if not (ctx.has_r32 and ctx.wide_pages):
+        fail(f"demo-city: has_r32 {ctx.has_r32}, wide pages {ctx.wide_pages}: not K1's R32 / wide branches")
+    phase("city", f"demo-city {tuple(st.contents.shape)}: build_universe {build_s:.3f} s (host content "
+          f"{build_s - sum(snaps):.3f} s, snapshot {sum(snaps):.3f} s); palette {sp.palette_len()}, "
+          f"{int((st.tables.voxel_index >= 0).sum())} voxel-block entries, {len(placed)} exhibits placed; "
+          f"K1 tables rows {tuple(ctx.rows.shape)} pages {tuple(ctx.pages.shape)} (wide) page_idx "
+          f"{tuple(ctx.page_idx.shape)}, R32 octant rows; text masks: "
+          f"{font.rasterize_text.cache_info().misses} strings, all from the vendored table, none drawn by PIL")
+
+    relight = compare_relight(st, "demo-city")
+    cam = default_camera(sp, 1920, 1080, opts)
+    o, d = cam.pixel_rays(device=dev)
+    trace = compare_trace(st, o, d, "demo-city 1920x1080")
+    del o, d
+
+    # The main path, counted.
+    reset_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", dense.OverrelaxFellBack)
+        t0 = time.perf_counter()
+        lit, n = evaluate_light(st, batch_size=1024, max_rounds=5000)
+        torch.cuda.synchronize()
+        relight_s = time.perf_counter() - t0
+    fell = [str(w.message) for w in caught if issubclass(w.category, dense.OverrelaxFellBack)]
+    for w in caught:
+        if not issubclass(w.category, dense.OverrelaxFellBack):
+            warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
+    u.states["world"] = lit
+    t0 = time.perf_counter()
+    frame = render(lit, cam)
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    coverage = check_frame(frame, lit, "demo-city")
+
+    def city_step():
+        pal = sp.palette_len()
+        ms, info = timed_step(u)
+        return ms, info, sp.palette_len() - pal
+
+    steps = [city_step() for _ in range(CITY_WARMUP)]
+    with walked_rows() as batches:
+        timed = [city_step() for _ in range(CITY_TICKS)]
+    steps += timed
+    k1_before = tk.LAUNCHES
+    t0 = time.perf_counter()
+    stepped = render(u.states["world"], cam)
+    stepped_ms = (time.perf_counter() - t0) * 1e3
+    k1_stepped = tk.LAUNCHES - k1_before
+    counts = read_counts()
+
+    for name in ("relight_pass", "relight_pass_dyn", "relight_batch", "trace_megakernel"):
+        if counts[name] <= 0:
+            fail(f"demo-city main path: {name} was not launched: {counts}")
+    if k1_stepped <= 0:
+        fail(f"demo-city: the stepped frame launched no K1: {counts}")
+    if counts["trace_v1"] != 0:
+        fail(f"demo-city main path went through the v1 kernel: {counts}")
+    grew = [(i + 1, round(ms, 3), g) for i, (ms, _, g) in enumerate(steps) if g]
+    ms_t = [ms for ms, _, g in timed if not g]
+    ms_all = [ms for ms, _, _ in timed]
+    infos = [i for _, i, _ in timed]
+    walked = [int(w) for w, _ in batches]
+    busiest = batches[int(np.argmax(walked))][1] if batches else None
+    del batches
+    st2 = u.states["world"]
+    check_frame(stepped, st2, "demo-city stepped")
+    if not np.array_equal(sp.contents.astype(np.int32), st2.contents.cpu().numpy()):
+        fail("demo-city: the host Space's contents differ from the device contents after the steps")
+    fresh = dataclasses.replace(sp.snapshot(device=dev), light=st2.light)
+    if not torch.equal(fresh.cells, st2.cells):
+        fail("demo-city: the stepped cells differ from a fresh snapshot's")
+    ref = render(fresh, cam)
+    far = (np.abs(stepped.data.astype(np.int32) - ref.data.astype(np.int32)) > 1).any(-1)
+    if far.sum() > PIXEL_MAX_SHARE * far.size:
+        fail(f"demo-city: {int(far.sum())} pixels of the stepped frame differ from a fresh snapshot's")
+
+    u.profiler.reset()
+    u.profiler.sync = torch.cuda.synchronize
+    for _ in range(12):
+        u.step()
+    u.profiler.sync = None
+    spans = {k: round(v.total_s * 1e3 / v.calls, 3) for k, v in u.profiler.spans.items()}
+    profiled = profiled_frame(lambda: [u.step() for _ in range(6)])
+
+    grow = U.UniverseTransaction(spaces={"world": U.SpaceTransaction.set_cube(
+        free_cubes(sp, 1)[0], new=block.from_color((0.3, 0.6, 0.9, 1.0), "grown"))})
+    pal = sp.palette_len()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grow.execute(u)
+    torch.cuda.synchronize()
+    grow_ms = (time.perf_counter() - t0) * 1e3
+    if sp.palette_len() != pal + 1:
+        fail("demo-city: the palette-growing commit did not grow the palette")
+
+    per_tick = counts["relight_batch"] / (CITY_WARMUP + CITY_TICKS)
+    phase("city", f"demo-city main path: evaluate_light {n // st.light_dirty.numel()} passes "
+          f"({n} cube updates) in {relight_s:.3f} s, fall-back to w = 1: {fell[0] if fell else 'none'}; "
+          f"first 1920x1080 frame {frame_ms:.1f} ms, alpha coverage {coverage:.3f}; "
+          f"{CITY_WARMUP} warm-up steps: first {steps[0][0]:.1f} ms, median "
+          f"{float(np.median([m for m, _, _ in steps[:CITY_WARMUP]])):.3f} ms; {len(ms_all)} timed steps "
+          f"(synchronized, host clock): median {float(np.median(ms_all)):.3f} ms, mean {float(np.mean(ms_all)):.3f}, "
+          f"max {max(ms_all):.3f}, min {min(ms_all):.3f}; without palette growth: median "
+          f"{float(np.median(ms_t)):.3f} ms over {len(ms_t)}; steps that grew the palette (tick, ms, entries): "
+          f"{grew}; {sum(1 for i in infos if i._device_stats)} device-ticked; light updates "
+          f"{sum(i.light_updates for i in infos)}, queue after {infos[-1].light_queue}; K2 listed launches a "
+          f"tick {per_tick:.2f}; rows K2 walked per listed launch: mean "
+          f"{float(np.mean(walked)) if walked else 0:.2f} of {u.light_batch_size}, max {max(walked, default=0)}, "
+          f"{sum(w == 0 for w in walked)} of {len(walked)} walked none; stepped frame {stepped_ms:.1f} ms "
+          f"({k1_stepped} K1 launches), equal to "
+          f"a fresh snapshot's ({int(far.sum())} pixels over 1); launches {counts}")
+    phase("city", f"demo-city phases (ms a tick, synchronized spans, 12 ticks) {spans}; 6 ticks under "
+          f"torch.profiler: {profiled}; palette-growing commit (resnapshot) {grow_ms:.1f} ms")
+    if per_tick <= 0:
+        fail("demo-city: no K2 listed launch on the ticks")
+    if busiest is None or max(walked) == 0:
+        fail("demo-city: no listed K2 launch of the timed ticks walked a row")
+    batch = check_batch(*busiest, "demo-city", f"busiest step round ({max(walked)} walked)")
+    return dict(counts=counts, relight=relight, trace=trace, batch=batch)
+
+
 def main() -> None:
     sys.path.insert(0, HERE)
     import torch
@@ -1228,7 +1445,13 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    phase("device", f"{kind}; torch {torch.__version__} cuda {torch.version.cuda}; nvidia-smi: {smi}")
+    try:
+        import PIL
+        pil = f"PIL {PIL.__version__} importable"
+    except ImportError:
+        pil = "PIL not importable"
+    phase("device", f"{kind}; torch {torch.__version__} cuda {torch.version.cuda}; nvidia-smi: {smi}; "
+          f"{pil} (the port reads its text masks from a vendored table either way)")
 
     # 2. build
     t0 = time.perf_counter()
@@ -1274,6 +1497,9 @@ def main() -> None:
         fail("plaza640's megakernel tables fit their budget: it would not take the v1 path")
     po, pd = plaza_cam.pixel_rays(device=dev)
     trace_v1 = compare_v1(plaza_state, po, pd, "plaza640 1920x1080")
+    # K1 on the same rays, though plaza640's frame takes v1 (the tables'
+    # 10 MiB limit is a TPU VMEM limit): timed for comparison only.
+    compare_trace(plaza_state, po, pd, "plaza640 1920x1080")
     compare_paths(plaza_state, po, pd, opts, "plaza640 1920x1080")
     relight = compare_relight(plaza_state, "plaza640")
     compare_converge(plaza_space, "plaza640", dev)
@@ -1390,8 +1616,12 @@ def main() -> None:
             fail(f"step {name}: the main path launched no {'relight_batch' if c['relight_batch'] <= 0 else trace_kernel}: {c}")
         phase("step", f"{name}: {c['relight_batch'] / steps[name]['ticks']:.2f} K2 listed launches a tick")
 
-    counts = {k: atrium_counts[k] + plaza_counts[k] for k in atrium_counts}
-    counts["relight_batch"] = sum(st["counts"]["relight_batch"] for st in steps.values())
+    # 7. demo-city: built, relit, rendered, stepped and rendered again.
+    city = city_world(dev, opts, reset_counts, read_counts)
+
+    counts = {k: atrium_counts[k] + plaza_counts[k] + city["counts"][k] for k in atrium_counts}
+    counts["relight_batch"] = (sum(st["counts"]["relight_batch"] for st in steps.values())
+                               + city["counts"]["relight_batch"])
     rows = [
         ("trace_megakernel", "aic_tpu_torch/csrc/trace.cu", "aic_tpu/raytrace/pallas_trace.py:1140", trace),
         ("relight_pass", "aic_tpu_torch/csrc/relight.cu", "aic_tpu/light/pallas_relight.py:338",

@@ -411,3 +411,52 @@ def test_universe_steps_on_the_card_like_the_cpu(cuda_device):
     assert np.abs(la[..., :3] - lb[..., :3]).max() <= 1
     np.testing.assert_array_equal(la[..., 3], lb[..., 3])
     np.testing.assert_allclose(us["cuda"].bodies.position.cpu().numpy(), us["cpu"].bodies.position.numpy(), atol=1e-4)
+
+
+def test_trace_kernel_matches_plain_on_demo_city(cuda_device):
+    """K1 on full demo-city's state (R32 octant rows, wide classify pages)
+    against its twin: a 320x180 sample of `main.default_camera`'s view and
+    4096 rays from inside the city, every field."""
+    from aic_tpu_torch.content import TemplateParameters, build_template_space
+
+    sp = build_template_space("demo-city", TemplateParameters(seed=0, size=96))
+    st = sp.snapshot(device=cuda_device)
+    ctx = trace_kernel.get_bitmask_ctx2(st)
+    assert ctx.has_r32 and ctx.wide_pages
+    o, d = default_camera(sp, 320, 180, GraphicsOptions()).pixel_rays(device=cuda_device)
+    ro, rd = chip_smoke.random_rays(4096, -40.0, 40.0, seed=3)
+    lower = torch.as_tensor(st.lower, dtype=torch.float32, device=cuda_device)
+    o = torch.cat([o.reshape(-1, 3), torch.as_tensor(ro, device=cuda_device)]) - lower
+    d = torch.cat([d.reshape(-1, 3), torch.as_tensor(rd, device=cuda_device)])
+    r, s, _ = trace_kernel.initial_state(st, o.contiguous(), d.contiguous(), ctx)
+    before = trace_kernel.LAUNCHES
+    got = trace_kernel.run_megakernel(r, s, ctx)
+    assert trace_kernel.LAUNCHES == before + 1
+    want = trace_kernel.megakernel_plain(r, s, ctx)
+    assert bool((want["mode"] == trace_kernel.MODE_DONE).all())
+    assert bool((want["hit"] == 2).any())  # some rays end inside voxel blocks
+    for k in trace_kernel.STATE_FIELDS:
+        if k in trace_kernel.FLOAT_FIELDS:
+            torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=0)
+        else:
+            assert torch.equal(got[k], want[k]), k
+
+
+def test_demo_city_steps_on_the_card_like_the_cpu(cuda_device):
+    """Demo-city at size 48 from `build_universe` stepped 12 ticks on the
+    card and on the CPU: contents and cells equal, packed light within one
+    step, statuses equal, bodies within 1e-4."""
+    from aic_tpu_torch.content import TemplateParameters, build_universe
+
+    us = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        u = build_universe("demo-city", TemplateParameters(seed=0, size=48), device=dev)
+        for _ in range(12):
+            u.step()
+        us[dev.type] = u
+    a, b = us["cuda"].states["world"], us["cpu"].states["world"]
+    assert torch.equal(a.contents.cpu(), b.contents) and torch.equal(a.cells.cpu(), b.cells)
+    la, lb = a.light.cpu().numpy().astype(np.int32), b.light.numpy().astype(np.int32)
+    assert np.abs(la[..., :3] - lb[..., :3]).max() <= 1
+    np.testing.assert_array_equal(la[..., 3], lb[..., 3])
+    np.testing.assert_allclose(us["cuda"].bodies.position.cpu().numpy(), us["cpu"].bodies.position.numpy(), atol=1e-4)

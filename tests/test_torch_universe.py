@@ -319,7 +319,9 @@ def test_main_refuses_cuda_without_a_card(monkeypatch):
 
 
 def test_step_loop_modules_leave_out_jax():
-    """The step loop's modules import no JAX, not even through `aic_tpu`."""
+    """The step loop's modules, and the content, text, tools and widgets
+    modules that demo-city pulls in, import no JAX, not even through
+    `aic_tpu`."""
     import os
     import subprocess
     import sys
@@ -329,7 +331,14 @@ def test_step_loop_modules_leave_out_jax():
     code = (
         "import sys; import aic_tpu_torch.universe, aic_tpu_torch.physics, aic_tpu_torch.light.update, "
         "aic_tpu_torch.content.template, aic_tpu_torch.content.exhibits, aic_tpu_torch.io.whence, "
-        "aic_tpu_torch.profiling, aic_tpu_torch.universe.device_step; "
+        "aic_tpu_torch.profiling, aic_tpu_torch.universe.device_step, aic_tpu_torch.universe.cursor, "
+        "aic_tpu_torch.content, aic_tpu_torch.content.city, aic_tpu_torch.content.alg, "
+        "aic_tpu_torch.content.landscape, aic_tpu_torch.content.testing, aic_tpu_torch.content.fractal, "
+        "aic_tpu_torch.content.linking, aic_tpu_torch.text, aic_tpu_torch.text.font, aic_tpu_torch.text.layout, "
+        "aic_tpu_torch.text.sysfont, aic_tpu_torch.math.octant, aic_tpu_torch.math.chunking, "
+        "aic_tpu_torch.space.drawing, aic_tpu_torch.vui, aic_tpu_torch.vui.widgets; "
+        "from aic_tpu_torch.content import build_template_space, TemplateParameters; "
+        "build_template_space('menger-sponge', TemplateParameters()); "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'aic_tpu.')) or m == 'aic_tpu']; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
