@@ -37,25 +37,33 @@ interior light is the full pass (up to f32 summation order);
 `relight_pass` dispatches on the device of its tensors: a CPU tensor takes
 the plain version, a CUDA tensor launches the kernel or raises.
 
-The incremental light queue (`light/update.py`) runs the same kernel over
-a round's batch (`relight_listed_cuda`): one full pass whose work list is
-the batch's cubes, with a row list so that its per-cube inputs and
-outputs are per batch row, not per cube of the volume.
+The incremental light queue (`light/update.py`) relights a round's batch
+with the second kernel of `csrc/relight.cu`, which shares the walk
+(`relight_listed_cuda`): the full pass over a few to about a thousand
+rows, whose per-cube inputs and outputs are per batch row. Each lane
+walks one (row, chart ray) pair, a warp 32 rays of one row dealt by chart
+length (`deal_lanes`, kept in `PairTables.lane_ray`), so the launch's
+chain is one ray and a batch spreads over every SM; each row's sum is
+taken in a fixed order (a shuffle tree, then the warps' partials in warp
+order, added by the row's last warp to finish). It reads the state's
+packed light and decodes it through `decode_table`. Its plain twin is
+`update.relight_batch_plain`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from .. import kernels
-from ..math import faces
+from ..math import faces, lightpack
 
-#: Launches of the CUDA kernel by this process: the full and light-only
-#: variants over a volume's work list, and the full pass over a queue
+#: Launches of the CUDA kernels by this process: the full and light-only
+#: variants over a volume's work list, and the listed pass over a queue
 #: round's batch (the plain versions do not count).
 LAUNCHES = 0
 LAUNCHES_DYN = 0
@@ -66,6 +74,11 @@ LAUNCHES_LISTED = 0
 WARPS = 16
 #: Listed cubes of a kernel block, one per lane.
 TILE = 32
+#: Lanes of a warp: the listed kernel's chart rays of one row per warp.
+LANES = 32
+#: Warps a block of the listed kernel; `csrc/relight.cu`'s `kListedWarps`
+#: (checked at load).
+LISTED_BLOCK_WARPS = 8
 #: Mask bit of the padding cubes around the volume.
 MASK_OUTSIDE = 0x40
 
@@ -112,19 +125,33 @@ def deal_rays(lengths: np.ndarray, warps: int) -> tuple[np.ndarray, np.ndarray]:
     return ray_id, warp_start
 
 
+def deal_lanes(lengths: np.ndarray) -> np.ndarray:
+    """The listed kernel's lanes: one chart ray each, longest chart first,
+    LANES a warp, so that a warp's lanes walk rays of about the same
+    length and end together. Returns lane_ray i32[W*LANES], W =
+    ceil(R / LANES): the chart ray of each lane, -1 on the last warp's
+    empty lanes."""
+    order = np.argsort(-np.asarray(lengths), kind="stable")
+    lane_ray = np.full(-(-len(order) // LANES) * LANES, -1, np.int32)
+    lane_ray[: len(order)] = order
+    return lane_ray
+
+
 @dataclass(frozen=True)
 class PairTables:
     """The chart's (ray, step) pair tables on the device, in two layouts:
     per (ray, step) in chart order for the plain version, and one packed
     word per pair for the kernel, its rays in the order the kernel's warps
     walk them (`deal_pair_tables`), so that a warp's pairs are one run of
-    `words`. Cosines and sky are per chart ray; the kernel finds them
-    through `ray_id`."""
+    `words`. Cosines and sky are per chart ray; the volume kernel finds
+    them through `ray_id`, the listed kernel through `lane_ray`."""
 
     words: torch.Tensor  # i32[N+2] `pack_pair_words`, rays in dealt order
     ray_start: torch.Tensor  # i32[R+1] first word of each dealt ray
     ray_id: torch.Tensor  # i32[R] chart ray of each dealt ray
     warp_start: torch.Tensor  # i32[WARPS+1] first dealt ray of each kernel warp
+    lane_ray: torch.Tensor  # i32[W*LANES] `deal_lanes`: chart ray of each listed lane, or -1
+    lane_start: torch.Tensor  # i32[W*LANES] first word of each listed lane's ray (0 where -1)
     cosines: torch.Tensor  # f32[R,6]
     sky_ray: torch.Tensor  # f32[R,3] sky light seen along each ray
     sky_faces: torch.Tensor  # f32[6,3] BlockSky per-face light
@@ -157,6 +184,8 @@ class PairTables:
             ray_start=t(dealt["ray_start"]),
             ray_id=t(dealt["ray_id"]),
             warp_start=t(dealt["warp_start"]),
+            lane_ray=t(dealt["lane_ray"]),
+            lane_start=t(dealt["lane_start"]),
             cosines=cosines,
             sky_ray=sky_ray.contiguous(),
             sky_faces=sky_faces.contiguous(),
@@ -170,8 +199,9 @@ def deal_pair_tables(ch: dict) -> dict:
     """The kernel's layout of the chart's flat pair tables
     (`dense._pair_tables`), as numpy arrays: the rays dealt out over
     `WARPS` warps (`deal_rays`), then words (`pack_pair_words`) and
-    ray_start in that order, ray_id and warp_start. It depends only on the
-    chart, so the caller caches it."""
+    ray_start in that order, ray_id and warp_start; and the listed
+    kernel's lanes (`deal_lanes`) with the first word of each lane's ray.
+    It depends only on the chart, so the caller caches it."""
     n_rays = ch["cosines"].shape[0]
     counts = np.bincount(ch["ray_id"], minlength=n_rays)
     ray_id, warp_start = deal_rays(counts, WARPS)
@@ -182,8 +212,10 @@ def deal_pair_tables(ch: dict) -> dict:
     ray_start = np.concatenate([[0], np.cumsum(counts[ray_id])]).astype(np.int32)
     if not is_end[ray_start[1:] - 1].all():
         raise ValueError("a chart ray does not end at its last pair")
+    lane_ray = deal_lanes(counts)
+    lane_start = np.where(lane_ray >= 0, ray_start[:-1][position[lane_ray]], 0).astype(np.int32)
     return dict(words=pack_pair_words(off, face, is_end), ray_start=ray_start, ray_id=ray_id,
-                warp_start=warp_start)
+                warp_start=warp_start, lane_ray=lane_ray, lane_start=lane_start)
 
 
 @dataclass(frozen=True)
@@ -373,49 +405,20 @@ def _fn():
     if lib.aic_relight_warps() != WARPS:
         raise RuntimeError(f"csrc/relight.cu has {lib.aic_relight_warps()} warps a block, the ray deal {WARPS}")
     fn = lib.aic_relight_pass
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(contents, light_rgb, face_rows, dir_weights, alpha0, face_mask, cubes, per_row, p, dyn):
-    """Validate and launch `csrc/relight.cu`: per-cube inputs and outputs
-    over the volume, or with `per_row` one row ([n, ...]) per listed
-    cube. Returns the zero-filled outputs the kernel wrote into and
-    whether it launched (an empty work list launches nothing)."""
-    dev = contents.device
-    X, Y, Z = contents.shape
-    n = cubes.shape[0]
-    per = (n,) if per_row else (X, Y, Z)
-    R = p.cosines.shape[0]
-    req = kernels.require
-    req(contents, "contents", torch.int32, (X, Y, Z), dev)
-    req(light_rgb, "light_rgb", torch.float32, (X, Y, Z, 3), dev)
-    req(face_rows, "face_rows", torch.float32, (face_rows.shape[0], 8), dev)
-    req(dir_weights, "dir_weights", torch.float32, per + (6,), dev)
-    req(alpha0, "alpha0", torch.float32, per, dev)
-    req(face_mask, "face_mask", torch.uint8, (X + 2, Y + 2, Z + 2), dev)
-    req(cubes, "cubes", torch.int32, (n,), dev)
-    req(p.cosines, "cosines", torch.float32, (R, 6), dev)
-    req(p.sky_ray, "sky_ray", torch.float32, (R, 3), dev)
-    req(p.ray_start, "ray_start", torch.int32, (R + 1,), dev)
-    req(p.ray_id, "ray_id", torch.int32, (R,), dev)
-    req(p.words, "words", torch.int32, tuple(p.words.shape), dev)
-    req(p.warp_start, "warp_start", torch.int32, (WARPS + 1,), dev)
-    incoming = torch.zeros(per + (3,), dtype=torch.float32, device=dev)
-    total = torch.zeros(per, dtype=torch.float32, device=dev)
-    if n == 0:
-        return incoming, total, False
-    ptr = kernels.ptr
-    err = _fn()(
-        ptr(contents), ptr(light_rgb), ptr(face_rows), ptr(dir_weights),
-        ptr(alpha0), ptr(face_mask), ptr(cubes), ptr(p.cosines),
-        ptr(p.sky_ray), ptr(p.ray_start), ptr(p.ray_id), ptr(p.words), ptr(p.warp_start),
-        ptr(incoming), ptr(total), Y, Z, n, int(dyn), int(per_row),
-        kernels.stream_ptr(dev),
-    )
-    kernels.check_launch(err, "relight kernel")
-    return incoming, total, True
+def _listed_fn():
+    lib = kernels.load_library("relight")
+    if lib.aic_relight_listed_warps() != LISTED_BLOCK_WARPS:
+        raise RuntimeError(f"csrc/relight.cu has {lib.aic_relight_listed_warps()} listed warps a block, "
+                           f"relight_kernel {LISTED_BLOCK_WARPS}")
+    fn = lib.aic_relight_listed
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def relight_pass_cuda(contents, light_rgb, face_rows, ctx, dyn=False):
@@ -424,25 +427,121 @@ def relight_pass_cuda(contents, light_rgb, face_rows, ctx, dyn=False):
     and face rows (`dense.build_relight_ctx` does so). An empty work list
     launches nothing and gives zeros."""
     global LAUNCHES, LAUNCHES_DYN
-    kt = ctx.kernel
-    incoming, total, launched = _launch(contents, light_rgb, face_rows, ctx.dir_weights, ctx.alpha0,
-                                        kt.face_mask, kt.cubes, False, ctx.pairs, dyn)
-    if launched and dyn:
+    kt, p = ctx.kernel, ctx.pairs
+    dev = contents.device
+    X, Y, Z = contents.shape
+    n = kt.cubes.shape[0]
+    R = p.cosines.shape[0]
+    req = kernels.require
+    req(contents, "contents", torch.int32, (X, Y, Z), dev)
+    req(light_rgb, "light_rgb", torch.float32, (X, Y, Z, 3), dev)
+    req(face_rows, "face_rows", torch.float32, (face_rows.shape[0], 8), dev)
+    req(ctx.dir_weights, "dir_weights", torch.float32, (X, Y, Z, 6), dev)
+    req(ctx.alpha0, "alpha0", torch.float32, (X, Y, Z), dev)
+    req(kt.face_mask, "face_mask", torch.uint8, (X + 2, Y + 2, Z + 2), dev)
+    req(kt.cubes, "cubes", torch.int32, (n,), dev)
+    req(p.cosines, "cosines", torch.float32, (R, 6), dev)
+    req(p.sky_ray, "sky_ray", torch.float32, (R, 3), dev)
+    req(p.ray_start, "ray_start", torch.int32, (R + 1,), dev)
+    req(p.ray_id, "ray_id", torch.int32, (R,), dev)
+    req(p.words, "words", torch.int32, tuple(p.words.shape), dev)
+    req(p.warp_start, "warp_start", torch.int32, (WARPS + 1,), dev)
+    incoming = torch.zeros((X, Y, Z, 3), dtype=torch.float32, device=dev)
+    total = torch.zeros((X, Y, Z), dtype=torch.float32, device=dev)
+    if n == 0:
+        return incoming, total
+    ptr = kernels.ptr
+    err = _fn()(
+        ptr(contents), ptr(light_rgb), ptr(face_rows), ptr(ctx.dir_weights),
+        ptr(ctx.alpha0), ptr(kt.face_mask), ptr(kt.cubes), ptr(p.cosines),
+        ptr(p.sky_ray), ptr(p.ray_start), ptr(p.ray_id), ptr(p.words), ptr(p.warp_start),
+        ptr(incoming), ptr(total), Y, Z, n, int(dyn), kernels.stream_ptr(dev),
+    )
+    kernels.check_launch(err, "relight kernel")
+    if dyn:
         LAUNCHES_DYN += 1
-    elif launched:
+    else:
         LAUNCHES += 1
     return incoming, total
 
 
-def relight_listed_cuda(contents, light_rgb, face_rows, face_mask, pairs, cubes, dir_weights, alpha0):
-    """One full pass of `csrc/relight.cu` over a list of cubes (flat i32[n]
-    volume indices) whose ray weights f32[n,6] and alpha f32[n] are given
-    per row: (incoming f32[n,3], total f32[n]) per row, without the root
-    term. A row whose ray weights are all 0 walks no ray and gives 0."""
+@functools.lru_cache(maxsize=8)
+def decode_table(device: torch.device) -> torch.Tensor:
+    """f32[256] on `device`: the light of each packed u8 code, computed by
+    `lightpack.decode_scalar` there, so a lookup gives the bits that
+    `lightpack.decode_rgb` gives on that device."""
+    return lightpack.decode_scalar(torch.arange(256, device=device)).contiguous()
+
+
+#: (device, stream) → i32 tickets of the listed kernel, one per row, all 0
+#: between launches (the row's last warp resets its own). Only launches on
+#: that stream use them, so they take turns.
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.shape[0] < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
+
+
+def relight_listed_cuda(contents, light, face_rows, face_mask, pairs, cubes, dir_weights, alpha0):
+    """The listed kernel of `csrc/relight.cu` on the tensors' card: one
+    full pass over a list of cubes (flat i32[n] volume indices) whose ray
+    weights f32[n,6] and alpha f32[n] are given per row, reading the
+    packed light u8[X,Y,Z,4]: (incoming f32[n,3], total f32[n]) per row,
+    without the root term. A row whose ray weights are all 0 walks no ray
+    and gives 0.
+
+    The rows are summed through per-row tickets that the launch finds at 0
+    and leaves at 0; each (device, stream) has its own, so launches that
+    share them run one after another on that stream."""
     global LAUNCHES_LISTED
-    incoming, total, launched = _launch(contents, light_rgb, face_rows, dir_weights, alpha0,
-                                        face_mask, cubes, True, pairs, False)
-    LAUNCHES_LISTED += int(launched)
+    dev = contents.device
+    if dev.type != "cuda":
+        raise ValueError(f"the listed relight kernel runs on a CUDA device, not {dev}")
+    X, Y, Z = contents.shape
+    n = cubes.shape[0]
+    p = pairs
+    R = p.cosines.shape[0]
+    L = p.lane_ray.shape[0]
+    ray_warps = L // LANES
+    if L % LANES or not 0 < ray_warps <= LANES:
+        raise ValueError(f"{L} listed lanes: the row's sum takes 1 to {LANES} warps of {LANES}")
+    table = decode_table(dev)
+    req = kernels.require
+    req(contents, "contents", torch.int32, (X, Y, Z), dev)
+    req(light, "light", torch.uint8, (X, Y, Z, 4), dev)
+    if light.data_ptr() % 4:
+        raise ValueError("light: not aligned to its 32-bit texels")
+    req(table, "decode_table", torch.float32, (256,), dev)
+    req(face_rows, "face_rows", torch.float32, (face_rows.shape[0], 8), dev)
+    req(face_mask, "face_mask", torch.uint8, (X + 2, Y + 2, Z + 2), dev)
+    req(cubes, "cubes", torch.int32, (n,), dev)
+    req(dir_weights, "dir_weights", torch.float32, (n, 6), dev)
+    req(alpha0, "alpha0", torch.float32, (n,), dev)
+    req(p.cosines, "cosines", torch.float32, (R, 6), dev)
+    req(p.sky_ray, "sky_ray", torch.float32, (R, 3), dev)
+    req(p.lane_ray, "lane_ray", torch.int32, (L,), dev)
+    req(p.lane_start, "lane_start", torch.int32, (L,), dev)
+    req(p.words, "words", torch.int32, tuple(p.words.shape), dev)
+    incoming = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    total = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n == 0:
+        return incoming, total
+    partial = torch.empty((n, ray_warps, 4), dtype=torch.float32, device=dev)
+    ptr = kernels.ptr
+    err = _listed_fn()(
+        ptr(contents), ptr(light), ptr(table), ptr(face_rows), ptr(dir_weights), ptr(alpha0),
+        ptr(face_mask), ptr(cubes), ptr(p.cosines), ptr(p.sky_ray), ptr(p.lane_ray),
+        ptr(p.lane_start), ptr(p.words), ptr(partial), ptr(_tickets(dev, n)), ptr(incoming),
+        ptr(total), Y, Z, n, ray_warps, kernels.stream_ptr(dev),
+    )
+    kernels.check_launch(err, "listed relight kernel")
+    LAUNCHES_LISTED += 1
     return incoming, total
 
 

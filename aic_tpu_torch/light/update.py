@@ -10,13 +10,14 @@ cubes whose light moved by more than one packed step (updater.rs:340).
 than 2% of the volume is dirty and the queue below that.
 
 `relight_batch` is `compute_light` (updater.rs:362) for a batch of
-cubes. On the card it is one full pass of the relight kernel K2
-(`csrc/relight.cu`) whose work list is the batch (`relight_kernel.
-relight_listed_cuda`): `aic_tpu` states that its dense pass gives per
-cube the results of `relight_batch` (dense.py:388-391). On the CPU it is
-the plain version, a straight port of `aic_tpu`'s masked walk over the
-chart steps (update.py:101-277). A CUDA tensor never takes the plain
-walk.
+cubes. On the card it is one launch of K2's listed kernel
+(`csrc/relight.cu`, `relight_kernel.relight_listed_cuda`), which walks
+the chart rays of every batch row with the dense pass's step and reads
+the state's packed light: `aic_tpu` states that its dense pass gives per
+cube the results of `relight_batch` (dense.py:388-391). A batch with no
+valid row launches nothing. On the CPU it is the plain version, a
+straight port of `aic_tpu`'s masked walk over the chart steps
+(update.py:101-277). A CUDA tensor never takes the plain walk.
 
 Selection is `aic_tpu`'s two-stage top-k (update.py:293-316). `lax.top_k`
 returns the lower index first among equal values, and `torch.topk` makes
@@ -215,7 +216,9 @@ def batch_face_mask(state: SpaceState) -> torch.Tensor:
 def listed_inputs(state: SpaceState, cubes: torch.Tensor, valid: torch.Tensor):
     """What `relight_listed_cuda` takes for a batch, and the batch's
     origins: (args, origins). Rows that are padding, opaque or fully
-    absorbing at the root get zero ray weights, so they walk no ray."""
+    absorbing at the root get zero ray weights, so they walk no ray. The
+    light goes as the state holds it, packed: the kernel decodes the
+    texels it reads."""
     pairs = device_pair_tables(state)
     cubes = cubes.to(torch.int64)
     org = _origins(state, cubes, pairs.cosines)
@@ -223,16 +226,25 @@ def listed_inputs(state: SpaceState, cubes: torch.Tensor, valid: torch.Tensor):
     dw = torch.where(walked[:, None], org.dir_weights, torch.zeros_like(org.dir_weights)).contiguous()
     X, Y, Z = state.contents.shape
     flat = (cubes[:, 0].clamp(0, X - 1) * Y + cubes[:, 1].clamp(0, Y - 1)) * Z + cubes[:, 2].clamp(0, Z - 1)
-    light_rgb = lightpack.decode_rgb(state.light).contiguous()
-    args = (state.contents, light_rgb, state.tables.light_face_rows, batch_face_mask(state), pairs,
-            flat.to(torch.int32), dw, org.alpha0.contiguous())
+    args = (state.contents, state.light.contiguous(), state.tables.light_face_rows, batch_face_mask(state),
+            pairs, flat.to(torch.int32), dw, org.alpha0.contiguous())
     return args, org
 
 
 def relight_batch_cuda(state: SpaceState, cubes: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """`relight_batch` on the card: one full K2 pass over the batch, then
-    `finish`, which gives the rows that walked no ray their status, as
-    `aic_tpu`'s walk does."""
+    """`relight_batch` on the card: `relight_listed_batch`, except that a
+    batch whose every row is padding (an empty queue's) gives zeros and
+    launches nothing; finding that out is the round's one read-back."""
+    if not bool(valid.any()):
+        return torch.zeros((cubes.shape[0], 4), dtype=torch.uint8, device=cubes.device)
+    return relight_listed_batch(state, cubes, valid)
+
+
+def relight_listed_batch(state: SpaceState, cubes: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """One launch of K2's listed kernel over the batch, padding rows
+    included (they walk no ray and give 0), then `finish`, which gives the
+    rows that walked no ray their status, as `aic_tpu`'s walk does.
+    Reads nothing back."""
     args, org = listed_inputs(state, cubes, valid)
     incoming, total = relight_listed_cuda(*args)
     out = finish(org.origin_opaque, org.origin_emission, incoming + org.incoming0, total)
@@ -293,7 +305,8 @@ def light_update_round(state: SpaceState, batch_size: int = 256):
     relight them, scatter, clear them and re-enqueue the neighbours of
     cubes whose light changed by more than one step. Returns (state,
     stats), the stats as tensors on the state's device (updated,
-    max_diff, queue_remaining); nothing is read back to the host.
+    max_diff, queue_remaining). On the card the one read-back is whether
+    the batch has a valid row (`relight_batch_cuda`).
 
     Writes go through a copy of the volume with one spare element past
     its end, which takes the rows that must write nothing (padding rows,

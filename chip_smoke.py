@@ -40,11 +40,15 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    against the all-ray frame (`aic_tpu`'s loop and per-field glue) bit
    for bit, an empty list, and the trace stage through both loops,
    alternated.
-   After each slice, K2 over a queue round's batch (one listed launch,
-   `relight_batch_cuda`) against the plain `relight_batch` walk on the
-   same batch: a first round's 16 cubes after an edit and seeded random
-   batches of 16 and 1024, each timed launch only, beside the whole card
-   call, the plain walk, the bound and the critical path.
+   After each slice, K2's listed kernel over a queue round's batch (one
+   launch, `relight_batch_cuda`) against the plain `relight_batch` walk
+   on the same batch: a first round's 16 cubes after an edit, seeded
+   random batches of 16 and 1024 and a one-row batch, each with two
+   launches bit-equal and timed launch only, beside the earlier design's
+   time (`K2_LISTED_EARLIER_MS`), the whole card call with and without
+   the volume decode the call made before, the plain walk, the bound and
+   the chains of both designs; and a batch of padding only (zeros, no
+   launch).
 6. step    — the step loop: the atrium stepped 30 ticks through the
    device tick and through the per-cube host path (contents and cells
    equal, light within one step); then the atrium (120 ticks) and
@@ -58,6 +62,9 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    stepped world (K1, K3) held against a fresh snapshot's, the host
    contents against the device's, and a palette-growing commit timed
    apart; the launch counters read around the ticks and the frame.
+   After the checks, as many ticks again with each listed launch timed
+   by CUDA events (mean, max), and queue rounds in a row with and
+   without the round's valid-row read-back, alternated.
 7. city    — demo-city (96x28x96, its exhibits, R32 blocks and wide
    classify pages) from `build_universe("demo-city")` on the card, the
    content build and the snapshot timed apart: K2 (both variants) and K1
@@ -66,7 +73,8 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    printed, not an error), a 1920x1080 frame, 35 + 60 steps as bench.py's
    `step_demo_city_ms` steps it (each synchronized; palette-growing steps
    apart) and a frame of the stepped world; the counters read. Then the
-   busiest timed batch against the plain walk, the phases' spans and a
+   busiest timed batch against the plain walk, the phases' spans, 60
+   more steps with each listed launch timed by CUDA events, and a
    palette-growing commit.
 8. the kernels line (JSON; K2's listed mode as `relight_batch`, from
    the atrium step's batch that walked the most rows; launches summed
@@ -152,6 +160,20 @@ K3_EARLIER_MS = {
     "atoms": 0.029, "voxels": 0.025, "atrium 1920x1080": 0.188, "plaza640 1920x1080": 0.635,
     "plaza640 round 1": 0.6308, "plaza640 round 2": 0.0886, "plaza640 round 3": 0.1027,
     "plaza640 round 4": 0.0703,
+}
+
+#: K2 over a queue round's batch as it was before the listed kernel: the
+#: volume pass's tile of 32 listed cubes x 16 warps with per-row inputs,
+#: over light decoded to f32 by a pass over the whole volume (PERF.md's
+#: kernel table, "earlier" column; NVIDIA H100 80GB HBM3, 700.00 W),
+#: printed beside this run's times as constants: (the launch alone, the
+#: whole `relight_batch_cuda` call) in ms, by (world, batch case).
+K2_LISTED_EARLIER_MS = {
+    ("atrium", "first round"): (0.2792, 1.656), ("atrium", "random 16"): (0.1926, 1.211),
+    ("atrium", "random 1024"): (0.4672, 1.468), ("atrium", "busiest step round"): (0.3886, 1.500),
+    ("plaza640", "first round"): (0.0509, 1.415), ("plaza640", "random 16"): (0.1141, 1.394),
+    ("plaza640", "random 1024"): (0.1220, 1.820), ("plaza640", "busiest step round"): (0.1299, 2.018),
+    ("demo-city", "busiest step round"): (0.1705, 1.800),
 }
 
 
@@ -257,20 +279,31 @@ SPIN_CYCLES_ONE = 400_000
 
 def launch_ms(fn, reps: int) -> float:
     """Mean device ms of `fn` over `reps` back-to-back calls (one warm-up
-    first), a spin kernel queued ahead so that no host time enters."""
+    first), a spin kernel queued ahead so that no host time enters. Where
+    the host took longer to queue the calls than the spin ran (a wrapper
+    whose host work outlasts a short kernel), the window would time the
+    host: it is measured again behind a spin four times as long."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    spin = SPIN_CYCLES
+    while True:
+        before = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        before.record()
+        torch.cuda._sleep(spin)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if before.elapsed_time(start) > host_ms or spin >= 64 * SPIN_CYCLES:
+            return start.elapsed_time(end) / reps
+        spin *= 4
 
 
 def nbytes(*tensors) -> int:
@@ -623,8 +656,8 @@ def profiled_frame(fn) -> str:
     """Wall time of one synchronized call of `fn` under torch.profiler,
     the device time it recorded (the self time of the device events, as
     the profiler's own table sums it: the CPU ops' rows repeat the time
-    of the kernels they launch), the busy share, and the five kernels
-    that took the most device time."""
+    of the kernels they launch), the busy share, the five kernels that
+    took the most device time, and the port's own kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -642,8 +675,10 @@ def profiled_frame(fn) -> str:
     ]
     device_ms = sum(r[0] for r in rows)
     top = sorted(rows, reverse=True)[:5]
+    ours = [r for r in rows if "(anonymous namespace)::" in r[1] and "at::native" not in r[1]]
     return (f"wall {wall_ms:.1f} ms, device {device_ms:.3f} ms (busy {device_ms / wall_ms:.1%}); top: "
-            + "; ".join(f"{k[:60]} {ms:.3f} ms x{n}" for ms, k, n in top))
+            + "; ".join(f"{k[:60]} {ms:.3f} ms x{n}" for ms, k, n in top)
+            + "; the port's kernels: " + ("; ".join(f"{k[:60]} {ms:.3f} ms x{n}" for ms, k, n in ours) or "none"))
 
 
 def v1_frame_launches(fn) -> list:
@@ -907,8 +942,10 @@ def step_world(name, camera, dev, reset_counts, read_counts) -> dict:
     device's, the device cells against a fresh snapshot's, and the frame
     against a frame of a fresh snapshot with the stepped light. Then 12
     ticks with synchronized profiler spans for the phases, one cycle of
-    ticks under torch.profiler (the card's busy share), and a commit that
-    grows the palette (a resnapshot) timed apart."""
+    ticks under torch.profiler (the card's busy share), STEP_TICKS[name]
+    ticks with each listed K2 launch timed (`listed_launches_over`), a
+    round's stages and the round's read-back (`round_readback`), and a
+    commit that grows the palette (a resnapshot) timed apart."""
     import dataclasses
 
     import torch
@@ -968,7 +1005,9 @@ def step_world(name, camera, dev, reset_counts, read_counts) -> dict:
     u.profiler.sync = None
     spans = {k: round(v.total_s * 1e3 / v.calls, 3) for k, v in u.profiler.spans.items()}
     profiled = profiled_frame(lambda: [u.step() for _ in range(CYCLE_PERIOD)])
+    tick_launches = listed_launches_over(lambda: [u.step() for _ in range(STEP_TICKS[name])])
     rounds = round_stages(u.states["world"], u.light_batch_size)
+    readback = round_readback(u.states["world"], u.light_batch_size)
 
     grow = U.UniverseTransaction(spaces={"world": U.SpaceTransaction.set_cube(
         placed[0], new=block.from_color((0.3, 0.6, 0.9, 1.0), "grown"))})
@@ -990,14 +1029,16 @@ def step_world(name, camera, dev, reset_counts, read_counts) -> dict:
           f"mean {float(np.mean(walked)) if walked else 0:.2f} of {u.light_batch_size}, max {max(walked, default=0)}, "
           f"{sum(w == 0 for w in walked)} of {len(walked)} launches walked none; "
           f"phases (ms a tick, synchronized spans, 12 ticks) "
-          f"{spans}; a light round's stages (ms, median of 5, synchronized) {rounds}; "
+          f"{spans}; a light round's stages (ms, median of 5, synchronized) {rounds}; {readback}; "
           f"{CYCLE_PERIOD} ticks under torch.profiler: {profiled}; "
           f"frame {camera.viewport.width}x{camera.viewport.height} {frame_ms:.1f} ms, equal to a fresh snapshot's ({int(far.sum())} pixels "
           f"over 1); host contents = device contents; palette-growing commit (resnapshot) {grow_ms:.1f} ms; "
           f"launches {counts}")
     if busiest is None or max(walked) == 0:
         fail(f"step {name}: no listed K2 launch of the timed ticks walked a row")
-    batch = check_batch(*busiest, name, f"busiest step round ({max(walked)} walked)")
+    batch = check_batch(*busiest, name, f"busiest step round ({max(walked)} walked)", profile=True)
+    phase("step", f"{name}: K2 listed over {STEP_TICKS[name]} ticks after the timed ones: {tick_launches}; "
+          f"the busiest batch of the timed ticks {batch[1]:.4f} ms launch only")
     return dict(counts=counts, median_ms=med, ticks=len(ms), spans=spans, batch=batch)
 
 
@@ -1024,11 +1065,57 @@ class walked_rows:
         return False
 
 
+def listed_launches_over(fn) -> str:
+    """Every launch of K2's listed kernel while `fn` runs (ticks of their
+    own, after the timed ones, which this would slow), timed alone: the C
+    call is bracketed by CUDA events, a spin kernel (SPIN_CYCLES)
+    queued ahead so that they time the card's work only. Returns the
+    launches, the mean and max ms, and how many windows the spin did not
+    cover (the host took longer to reach the launch than the spin ran:
+    such a window may hold host time)."""
+    import torch
+    from aic_tpu_torch.light import relight_kernel as rk
+
+    real, events = rk._listed_fn, []
+
+    def timed_fn():
+        fn_c = real()
+
+        def call(*args):
+            before = torch.cuda.Event(enable_timing=True)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            before.record()
+            torch.cuda._sleep(SPIN_CYCLES)
+            start.record()
+            err = fn_c(*args)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            end.record()
+            events.append((before, start, end, host_ms))
+            return err
+
+        return call
+
+    rk._listed_fn = timed_fn
+    try:
+        fn()
+    finally:
+        rk._listed_fn = real
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for _b, s, e, _h in events]
+    if not ms:
+        return "no listed launch"
+    short = sum(b.elapsed_time(s) < h for b, s, _e, h in events)
+    return (f"{len(ms)} listed launches: mean {float(np.mean(ms)):.4f} ms, max {max(ms):.4f} ms "
+            f"(CUDA events around each launch; {short} of {len(ms)} windows not covered by the spin ahead)")
+
+
 def round_stages(state, batch_size) -> dict:
     """One queue round of the stepped state, a stage at a time (host clock,
     synchronized, median of 5): the selection, `relight_batch` (the
-    origins, the volume's light decode, the K2 launch, `finish`), and the
-    whole round, whose rest is the scatters and re-enqueue."""
+    origins, the K2 launch, `finish`), and the whole round, whose rest is
+    the scatters and re-enqueue."""
     from aic_tpu_torch.light import update
 
     runs: dict = {}
@@ -1043,18 +1130,60 @@ def round_stages(state, batch_size) -> dict:
     return {k: round(float(np.median(v)), 3) for k, v in runs.items()}
 
 
+def round_readback(state, batch_size, rounds=8, reps=4) -> str:
+    """`rounds` queue rounds in a row from the stepped state, as a device
+    tick runs them (host clock, synchronized before the first and after
+    the last), with `relight_batch_cuda`'s read-back of whether a batch
+    has a valid row and without it (`relight_listed_batch` on every
+    batch: an all-padding batch launches), alternated with, without,
+    without, with, `reps` times: the median ms a round of each, and the
+    listed launches of a run of each."""
+    import torch
+    from aic_tpu_torch.light import relight_kernel as rk
+    from aic_tpu_torch.light import update
+
+    real = update.relight_batch_cuda
+    ms: dict = {"with": [], "without": []}
+    launched: dict = {}
+
+    def run(mode):
+        update.relight_batch_cuda = real if mode == "with" else update.relight_listed_batch
+        st, before = state, rk.LAUNCHES_LISTED
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            st, _stats = update.light_update_round(st, batch_size)
+        torch.cuda.synchronize()
+        ms[mode].append((time.perf_counter() - t0) * 1e3 / rounds)
+        launched[mode] = rk.LAUNCHES_LISTED - before
+
+    try:
+        run("with")
+        ms["with"].clear()
+        for _ in range(reps):
+            for mode in ("with", "without", "without", "with"):
+                run(mode)
+    finally:
+        update.relight_batch_cuda = real
+    return (f"{rounds} rounds in a row, ms a round (median of {2 * reps}, alternated): with the valid-row "
+            f"read-back {float(np.median(ms['with'])):.4f} ({launched['with']} listed launches), without "
+            f"{float(np.median(ms['without'])):.4f} ({launched['without']} listed launches)")
+
+
 def batch_cases(state, seed=0) -> dict:
     """K2's batches: a first queue round's 16 cubes after an edit of
-    the relit state (the block nearest the centre removed), and seeded
-    random batches of 16 and 1024 distinct cubes (every fourth row
-    padding)."""
+    the relit state (the block nearest the centre removed), seeded random
+    batches of 16 and 1024 distinct cubes (every fourth row padding), one
+    row (a seeded air cube resting on a block, so it has ray weight) and
+    16 rows that are all padding."""
     import torch
     from aic_tpu_torch.light.update import select_batch
     from aic_tpu_torch.space.state import scatter_set_cubes
 
     dev = state.device
     shape = tuple(state.contents.shape)
-    solid = np.argwhere(state.contents.cpu().numpy() != 0)
+    contents = state.contents.cpu().numpy()
+    solid = np.argwhere(contents != 0)
     mid = solid[np.argmin(((solid - np.asarray(shape) / 2) ** 2).sum(-1))]
     edited = scatter_set_cubes(state, torch.as_tensor(mid[None], device=dev),
                                torch.zeros(1, dtype=torch.int32, device=dev))
@@ -1066,23 +1195,56 @@ def batch_cases(state, seed=0) -> dict:
         cubes = np.stack(np.unravel_index(flat, shape), -1)
         cases[f"random {n}"] = (state, torch.as_tensor(cubes, device=dev),
                                 torch.as_tensor(np.arange(n) % 4 != 3, device=dev))
+    resting = np.argwhere((contents[:, 1:, :] == 0) & (contents[:, :-1, :] != 0)) + (0, 1, 0)
+    one = resting[rng.integers(len(resting))]
+    cases["one row"] = (state, torch.as_tensor(one[None], device=dev), torch.ones(1, dtype=torch.bool, device=dev))
+    flat = rng.choice(int(np.prod(shape)), size=16, replace=False)
+    cases["all padding"] = (state, torch.as_tensor(np.stack(np.unravel_index(flat, shape), -1), device=dev),
+                            torch.zeros(16, dtype=torch.bool, device=dev))
     return cases
 
 
-def listed_work(state, cubes, valid) -> tuple[dict, int, tuple[int, int]]:
-    """The plain pass's work counts, the bytes the kernel needs for the
-    batch's walks, and the critical path of the listed launch: the plain
-    twin over a context whose only weighted cubes are the batch's walked
-    rows. Bytes: the batch's rows in and out, the pair tables, one mask
+def listed_chain(lengths, pairs) -> tuple[int, float]:
+    """The listed kernel's chain over a batch, from the pair steps of each
+    walked (cube, chart ray) of the twin's walk (its `lengths` list): a
+    lane walks one ray, so the launch's longest chain is the batch's
+    longest walked ray (max_ray_steps); and how evenly the lanes of a warp
+    (32 rays of one row, `pairs.lane_ray`) end: the steps walked over 32
+    times each walking warp's longest lane (lane use)."""
+    import torch
+    from aic_tpu_torch.light import relight_kernel as rk
+
+    if not lengths:
+        return 0, 0.0
+    cube, ray, steps = (torch.cat(col) for col in zip(*lengths))
+    steps = steps.long()
+    lanes = pairs.lane_ray.long()
+    warp = torch.empty(pairs.cosines.shape[0], dtype=torch.long, device=cube.device)
+    slots = torch.arange(lanes.numel(), device=cube.device)
+    warp[lanes[lanes >= 0]] = slots[lanes >= 0] // rk.LANES
+    _keys, inv = torch.unique(cube * (lanes.numel() // rk.LANES) + warp[ray], return_inverse=True)
+    longest = torch.zeros(_keys.numel(), dtype=torch.long, device=cube.device)
+    longest.scatter_reduce_(0, inv, steps, "amax")
+    return int(steps.max()), float(steps.sum()) / float(rk.LANES * longest.sum())
+
+
+def listed_work(state, cubes, valid) -> tuple[dict, int, tuple[int, int], tuple[int, float]]:
+    """The plain pass's work counts, the bytes the listed kernel needs for
+    the batch's walks, the critical path of the volume pass's tile design
+    on the batch (`critical_path`, what the listed launch was before) and
+    the listed kernel's chain (`listed_chain`): the plain twin over a
+    context whose only weighted cubes are the batch's walked rows. Bytes:
+    the batch's rows in (cube, ray weights, alpha) and out (incoming,
+    total), the pair and lane tables and the decode table once, one mask
     byte a step, and for a visible step its cube's index, face row and
-    two light reads."""
+    two packed light texels."""
     import torch
     from aic_tpu_torch.light import dense
     from aic_tpu_torch.light import relight_kernel as rk
     from aic_tpu_torch.light import update
     from aic_tpu_torch.math import lightpack
 
-    (contents, light_rgb, rows, _mask, p, flat_all, dw_rows, a0_rows), _org = update.listed_inputs(state, cubes, valid)
+    (contents, light, rows, _mask, p, flat_all, dw_rows, a0_rows), _org = update.listed_inputs(state, cubes, valid)
     X, Y, Z = contents.shape
     walked = dw_rows.any(-1)
     flat = flat_all.long()[walked]
@@ -1095,29 +1257,62 @@ def listed_work(state, cubes, valid) -> tuple[dict, int, tuple[int, int]]:
                            origin_emission=None, pairs=p, kernel=None)
     work: dict = {}
     lengths: list = []
-    rk.relight_pass_plain(contents, light_rgb, rows, ctx, work=work, lengths=lengths)
+    rk.relight_pass_plain(contents, lightpack.decode_rgb(light), rows, ctx, work=work, lengths=lengths)
     path = critical_path(ctx, lengths, listed=flat_all)
+    chain = listed_chain(lengths, p)
     n = cubes.shape[0]
-    moved = (n * (12 + 24 + 4 + 16 + 4) + nbytes(p.cosines, p.sky_ray, p.ray_start, p.ray_id, p.words, p.warp_start)
-             + work.get("steps", 0) + work.get("visible", 0) * (4 + 32 + 24))
-    return work, moved, path
+    moved = (n * (4 + 24 + 4 + 12 + 4) + nbytes(p.cosines, p.sky_ray, p.lane_ray, p.lane_start, p.words)
+             + 256 * 4 + work.get("steps", 0) + work.get("visible", 0) * (4 + 32 + 8))
+    return work, moved, path, chain
 
 
 def compare_batch(state, label) -> dict:
     """K2 over a queue round's batch on each of `batch_cases`
-    (`check_batch`). Returns {batch label: `check_batch`'s tuple}."""
-    return {blabel: check_batch(st, cubes, valid, label, blabel)
-            for blabel, (st, cubes, valid) in batch_cases(state).items()}
+    (`check_batch`; the all-padding batch `check_padding_batch`). Returns
+    {batch label: `check_batch`'s tuple}."""
+    out = {}
+    for blabel, (st, cubes, valid) in batch_cases(state).items():
+        if bool(valid.any()):
+            out[blabel] = check_batch(st, cubes, valid, label, blabel)
+        else:
+            check_padding_batch(st, cubes, valid, label, blabel)
+    return out
 
 
-def check_batch(st, cubes, valid, label, blabel) -> tuple:
+def check_padding_batch(st, cubes, valid, label, blabel) -> None:
+    """A batch whose every row is padding: `relight_batch_cuda` gives
+    zeros, as the plain walk does, and launches nothing."""
+    import torch
+    from aic_tpu_torch.light import relight_kernel as rk
+    from aic_tpu_torch.light import update
+
+    before = rk.LAUNCHES_LISTED
+    got = update.relight_batch_cuda(st, cubes, valid)
+    torch.cuda.synchronize()
+    if rk.LAUNCHES_LISTED != before:
+        fail(f"relight batch {label} {blabel}: {rk.LAUNCHES_LISTED - before} listed launches, not 0")
+    if bool(got.any()) or bool(update.relight_batch_plain(st, cubes, valid).any()):
+        fail(f"relight batch {label} {blabel}: a padding row is not 0")
+    phase("kernels", f"relight batch {label} {blabel}: {cubes.shape[0]} rows, none valid: zeros as the plain "
+          f"walk's, no launch")
+
+
+def check_batch(st, cubes, valid, label, blabel, profile=False) -> tuple:
     """K2 over one batch (`relight_batch_cuda`: one listed launch) against
     the plain `relight_batch` walk on it: packed light within one step
     and statuses equal on the valid rows, padding rows 0, one launch a
-    call. Times the listed launch alone (inputs made first, `launch_ms`),
-    the whole card call and the plain walk, beside the bound from the
-    batch's own walks. Returns (max abs err, launch ms, plain ms, bound
-    ms, bound by, call ms)."""
+    call, two launches on the same inputs bit-equal, and the kernel's
+    decode table looked up on the state's light bit-equal to
+    `decode_rgb`. Times the listed launch alone (inputs made first,
+    `launch_ms`), the whole card call, the call with the volume decode
+    that the call made before the listed kernel read packed light (both
+    host-bound), the decode's card time alone (`launch_ms`), and the
+    plain walk, beside the earlier design's times
+    (`K2_LISTED_EARLIER_MS`), the bound from the batch's own walks and
+    the chains of both designs. With `profile`, ten calls with and ten
+    without the volume decode under torch.profiler: the call is host
+    time, and the profiler shows the card's share of it. Returns (max abs
+    err, launch ms, plain ms, bound ms, bound by, call ms)."""
     import torch
     from aic_tpu_torch.light import relight_kernel as rk
     from aic_tpu_torch.light import update
@@ -1138,19 +1333,43 @@ def check_batch(st, cubes, valid, label, blabel) -> tuple:
     # The launch alone, on the inputs relight_batch_cuda makes for it.
     args, _org = update.listed_inputs(st, cubes, valid)
     walked = args[6].any(-1)
+    first, second = rk.relight_listed_cuda(*args), rk.relight_listed_cuda(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(first, second)):
+        fail(f"relight batch {label} {blabel}: two launches on the same inputs differ")
+    looked_up = rk.decode_table(st.device)[st.light[..., :3].long()]
+    if not torch.equal(looked_up.view(torch.int32), lightpack.decode_rgb(st.light).view(torch.int32)):
+        fail(f"relight batch {label}: the kernel's decode table differs from decode_rgb")
     ms_launch = launch_ms(lambda: rk.relight_listed_cuda(*args), 50)
     ms_call = cuda_ms(lambda: update.relight_batch_cuda(st, cubes, valid), 20)
+    ms_decode = launch_ms(lambda: lightpack.decode_rgb(st.light).contiguous(), 20)
+    ms_call_decode = cuda_ms(lambda: (lightpack.decode_rgb(st.light).contiguous(),
+                                      update.relight_batch_cuda(st, cubes, valid)), 20)
     ms_plain = cuda_ms(lambda: update.relight_batch_plain(st, cubes, valid), 3)
-    ms_decode = cuda_ms(lambda: lightpack.decode_rgb(st.light).contiguous(), 20)
-    work, moved, (max_cube, max_warp) = listed_work(st, cubes, valid)
+    work, moved, (max_cube, max_warp), (max_ray, lane_use) = listed_work(st, cubes, valid)
     b_ms, b_by = bound("relight_pass", moved, work)
+    earlier = K2_LISTED_EARLIER_MS.get((label, blabel.split(" (")[0]))
+    earlier = (f"launch {earlier[0]:.4f} ms, whole call {earlier[1]:.3f} ms (constants, PERF.md)"
+               if earlier else "not measured")
+    n_rows = cubes.shape[0]
+    ray_warps = args[4].lane_ray.numel() // rk.LANES
     err = float(step)
-    phase("kernels", f"relight batch {label} {blabel}: {int(valid.sum())} valid of {cubes.shape[0]} rows, "
-          f"{int(walked.sum())} walked; packed diff {step}, statuses equal, padding 0; listed launch "
-          f"{ms_launch:.4f} ms (launch only), whole card call {ms_call:.3f} ms (of which the volume's "
-          f"light decode {ms_decode:.3f} ms), plain walk {ms_plain:.3f} ms; bound {b_ms:.5f} ms ({b_by}), "
-          f"{b_ms / ms_launch:.1%} of it; critical path: max_cube_steps {max_cube}, max_warp_steps "
-          f"{max_warp}; work {work}")
+    phase("kernels", f"relight batch {label} {blabel}: {int(valid.sum())} valid of {n_rows} rows, "
+          f"{int(walked.sum())} walked; packed diff {step}, statuses equal, padding 0, two launches bit-equal, "
+          f"decode table = decode_rgb bit for bit; listed launch {ms_launch:.4f} ms (launch only; "
+          f"{n_rows} x {ray_warps} warps in {-(-n_rows * ray_warps // rk.LISTED_BLOCK_WARPS)} blocks of "
+          f"{rk.LISTED_BLOCK_WARPS}), whole card call {ms_call:.3f} ms (host-bound), with the volume's light "
+          f"decode {ms_call_decode:.3f} ms (the decode's card time {ms_decode:.4f} ms); earlier design: {earlier}; plain "
+          f"walk {ms_plain:.3f} ms; bound {b_ms:.5f} ms ({b_by}), {b_ms / ms_launch:.1%} of it; chain: "
+          f"max_ray_steps {max_ray} (lane use {lane_use:.1%}) against the earlier design's max_warp_steps "
+          f"{max_warp} (one thread per cube: max_cube_steps {max_cube}); work {work}")
+    if profile:
+        phase("kernels", f"relight batch {label} {blabel}: ten whole card calls under torch.profiler: "
+              f"{profiled_frame(lambda: [update.relight_batch_cuda(st, cubes, valid) for _ in range(10)])}")
+        phase("kernels", f"relight batch {label} {blabel}: ten calls with the volume's light decode under "
+              f"torch.profiler: " + profiled_frame(lambda: [(lightpack.decode_rgb(st.light).contiguous(),
+                                                            update.relight_batch_cuda(st, cubes, valid))
+                                                           for _ in range(10)]))
     return err, ms_launch, ms_plain, b_ms, b_by, ms_call
 
 
@@ -1258,8 +1477,9 @@ def city_world(dev, opts, reset_counts, read_counts) -> dict:
     an error), a 1920x1080 frame, CITY_WARMUP + CITY_TICKS steps timed one
     by one (palette-growing steps apart), and a frame of the stepped world;
     the counters read. Then the busiest timed batch against the plain
-    walk, the stepped frame against a fresh snapshot's, the phases' spans
-    and a palette-growing commit timed apart."""
+    walk, the stepped frame against a fresh snapshot's, the phases' spans,
+    CITY_TICKS more steps with each listed K2 launch timed
+    (`listed_launches_over`) and a palette-growing commit timed apart."""
     import dataclasses
 
     import torch
@@ -1372,6 +1592,7 @@ def city_world(dev, opts, reset_counts, read_counts) -> dict:
     u.profiler.sync = None
     spans = {k: round(v.total_s * 1e3 / v.calls, 3) for k, v in u.profiler.spans.items()}
     profiled = profiled_frame(lambda: [u.step() for _ in range(6)])
+    tick_launches = listed_launches_over(lambda: [u.step() for _ in range(CITY_TICKS)])
 
     grow = U.UniverseTransaction(spaces={"world": U.SpaceTransaction.set_cube(
         free_cubes(sp, 1)[0], new=block.from_color((0.3, 0.6, 0.9, 1.0), "grown"))})
@@ -1406,7 +1627,9 @@ def city_world(dev, opts, reset_counts, read_counts) -> dict:
         fail("demo-city: no K2 listed launch on the ticks")
     if busiest is None or max(walked) == 0:
         fail("demo-city: no listed K2 launch of the timed ticks walked a row")
-    batch = check_batch(*busiest, "demo-city", f"busiest step round ({max(walked)} walked)")
+    batch = check_batch(*busiest, "demo-city", f"busiest step round ({max(walked)} walked)", profile=True)
+    phase("city", f"demo-city: K2 listed over {CITY_TICKS} steps after the timed ones: {tick_launches}; the "
+          f"busiest batch of the timed steps {batch[1]:.4f} ms launch only")
     return dict(counts=counts, relight=relight, trace=trace, batch=batch)
 
 

@@ -5,9 +5,11 @@ These tests need a CUDA device and skip without one. They import no JAX
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
-Tolerances are those of chip_smoke.py: the relight kernel's packed light
+Tolerances are those of chip_smoke.py: the relight kernels' packed light
 within one step of the twin's with statuses equal (the two sum a cube's
-rays in another order), for both of its variants; the trace kernels'
+rays in another order), for both variants of the volume pass and for the
+listed kernel over a queue round's batch (which agrees with the volume
+pass to f32 summation order, 1e-5 relative); the trace kernels'
 (megakernel and v1 surface finder) integer fields equal and float fields
 within 1e-5 relative (both round every multiply and add separately).
 """
@@ -343,33 +345,89 @@ def test_trace_v1_walking_list_frame_matches_all_rays(cuda_device, monkeypatch):
 
 @pytest.mark.parametrize("scene", ["mixed", "cornell16"])
 def test_relight_batch_listed_matches_plain(cuda_device, scene):
-    """`relight_batch` on the card is one listed K2 launch; its packed light
-    is within one step of the plain walk's on the valid rows, statuses
-    equal, padding rows 0, for a first round's batch and random batches."""
+    """`relight_batch` on the card is one launch of K2's listed kernel;
+    its packed light is within one step of the plain walk's on the valid
+    rows, statuses equal, padding rows 0, for a first round's batch,
+    random batches of 16 and 1024 rows and a one-row batch; a batch of
+    padding only launches nothing."""
     from aic_tpu_torch.light import update
     from aic_tpu_torch.light.update import evaluate_light
 
     space = chip_smoke.relight_scene(PKG) if scene == "mixed" else cornell_box(16)
     st, _ = evaluate_light(space.snapshot(device=cuda_device))
-    for label, (s2, cubes, valid) in chip_smoke.batch_cases(st).items():
+    cases = chip_smoke.batch_cases(st)
+    assert {"random 1024", "one row", "all padding"} <= set(cases)
+    for label, (s2, cubes, valid) in cases.items():
         before = relight_kernel.LAUNCHES_LISTED
         got = update.relight_batch(s2, cubes, valid)
-        assert relight_kernel.LAUNCHES_LISTED == before + 1, label
+        assert relight_kernel.LAUNCHES_LISTED == before + int(bool(valid.any())), label
         want = update.relight_batch_plain(s2, cubes, valid)
         a, b = got.cpu().numpy().astype(np.int32), want.cpu().numpy().astype(np.int32)
         v = valid.cpu().numpy()
-        assert np.abs(a[v, :3] - b[v, :3]).max() <= 1, label
+        assert np.abs(a[v, :3] - b[v, :3]).max(initial=0) <= 1, label
         np.testing.assert_array_equal(a[v, 3], b[v, 3], err_msg=label)
         assert not a[~v].any(), label
 
 
 def test_relight_batch_two_launches_bit_equal(cuda_device):
+    """The listed kernel sums each row in a fixed order: two launches on
+    the same inputs give the same bits, its raw sums and the packed
+    light."""
     from aic_tpu_torch.light import update
 
     st, _ = fast_evaluate_seed(cornell_box(16).snapshot(device=cuda_device))
     cubes = torch.as_tensor(np.stack(np.unravel_index(np.arange(0, 4096, 37), (16, 16, 16)), -1), device=cuda_device)
     valid = torch.ones(cubes.shape[0], dtype=torch.bool, device=cuda_device)
     assert torch.equal(update.relight_batch(st, cubes, valid), update.relight_batch(st, cubes, valid))
+    args, _org = update.listed_inputs(st, cubes, valid)
+    a = relight_kernel.relight_listed_cuda(*args)
+    b = relight_kernel.relight_listed_cuda(*args)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_listed_kernel_matches_volume_pass(cuda_device):
+    """The listed kernel and the volume pass walk the same step over the
+    same inputs: per walked row their sums agree to f32 summation order;
+    rows that walk nothing give 0."""
+    from aic_tpu_torch.light import update
+
+    st, _ = fast_evaluate_seed(chip_smoke.relight_scene(PKG).snapshot(device=cuda_device))
+    ctx = dense.build_relight_ctx(st)
+    X, Y, Z = st.contents.shape
+    flat = np.random.default_rng(5).choice(X * Y * Z, size=300, replace=False)
+    cubes = torch.as_tensor(np.stack(np.unravel_index(flat, (X, Y, Z)), -1), device=cuda_device)
+    valid = torch.ones(300, dtype=torch.bool, device=cuda_device)
+    args, _org = update.listed_inputs(st, cubes, valid)
+    inc_v, tot_v = relight_kernel.relight_pass_cuda(st.contents, lightpack.decode_rgb(st.light).contiguous(),
+                                                    st.tables.light_face_rows, ctx)
+    walked = args[6].any(-1)
+    assert 0 < int(walked.sum()) < 300
+    idx = torch.as_tensor(flat, device=cuda_device)
+    inc, tot = relight_kernel.relight_listed_cuda(*args)
+    torch.testing.assert_close(inc, inc_v.reshape(-1, 3)[idx], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(tot, tot_v.reshape(-1)[idx], rtol=1e-5, atol=1e-6)
+    assert not inc[~walked].any() and not tot[~walked].any()
+
+
+def test_relight_batch_all_padding_launches_nothing(cuda_device):
+    from aic_tpu_torch.light import update
+
+    st, _ = fast_evaluate_seed(cornell_box(16).snapshot(device=cuda_device))
+    cubes = torch.as_tensor([[3, 1, 3], [8, 8, 8]], device=cuda_device)
+    before = relight_kernel.LAUNCHES_LISTED
+    out = update.relight_batch(st, cubes, torch.zeros(2, dtype=torch.bool, device=cuda_device))
+    torch.cuda.synchronize()
+    assert relight_kernel.LAUNCHES_LISTED == before and out.shape == (2, 4) and not out.any()
+
+
+def test_decode_table_gives_decode_rgb_bits(cuda_device):
+    """The listed kernel's light table, computed on the card, looked up
+    per channel gives the bits of `lightpack.decode_rgb` on the card."""
+    rng = np.random.default_rng(4)
+    light = torch.as_tensor(rng.integers(0, 256, size=(9, 7, 5, 4), dtype=np.uint8), device=cuda_device)
+    table = relight_kernel.decode_table(light.device)
+    got = table[light[..., :3].long()]
+    assert torch.equal(got.view(torch.int32), lightpack.decode_rgb(light).view(torch.int32))
 
 
 def test_relight_batch_after_an_edit_equals_fresh_tables(cuda_device):
