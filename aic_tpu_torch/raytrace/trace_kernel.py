@@ -14,19 +14,25 @@ R ≤ 16, eight octant rows for R32) until a voxel is hit or the grid is
 left, when the saved registers come back. Ties break Z, then Y, then X;
 block entry uses a 1e-4/|d| nudge.
 
-On the H100 the kernel is one thread per ray, reading `l1`, `rows`,
-`page_idx` and `pages` from global memory: they are a few hundred KB at
-most (atrium: 45 rows, 512 page rows) and stay in L1/L2. What bounds it
-is the serial chain of dependent bit loads along each ray and warp
-divergence between rays that take different paths; the design keeps the
-DDA registers in registers, drops the TPU kernel's min-domain group
-synchronisation (a Mosaic gather workaround: here every thread loads its
-own row word), and keeps the 28-field state contract so that the phase
-loop and the tests are the same as `aic_tpu`'s. A thread runs its ray to
-the end in one launch: the TPU tracer's relaunch rounds, each behind a
-device-to-host check, are gone.
+On the H100 the kernel is one thread per listed ray, reading `l1`,
+`rows`, `page_idx` and `pages` from global memory: they are a few
+hundred KB at most (atrium: 45 rows, 512 page rows) and stay in L1/L2.
+It keeps the 28-field state contract, so that the twin and the tests
+are `aic_tpu`'s, but updates the state in place and touches only what
+a ray's path needs (see `csrc/trace.cu`); the TPU kernel's min-domain
+group synchronisation (a Mosaic gather workaround) is gone, and a
+thread runs its ray to the end in one launch, so the TPU tracer's
+relaunch rounds, each behind a device-to-host check, are gone too.
 
-`run_megakernel` dispatches on the tensors' device: CPU → the plain
+The phase loop (`_phases_v2`) packs the ray constants and the state
+once a frame and carries the state in one i32[28, m] buffer; each phase
+walks only its listed rays (`walk_phase`): all the rays that meet the
+volume, then the few that resume past a transparent hit (demo-city at
+1080p: 2.07 M, then 1,075). It equals the all-ray loop
+(`phases_all_rays`, `aic_tpu`'s) bit for bit.
+
+`run_megakernel` (all rays, the dict contract) and `walk_phase` (a
+list, in place) dispatch on the tensors' device: CPU → the plain
 vectorised version, CUDA → the kernel or an exception.
 `trace_rays_kernel` takes the megakernel where its tables fit
 (`megakernel_fits`) and the v1 surface finder (`trace_kernel_v1.py`)
@@ -378,7 +384,11 @@ def megakernel_plain(rays: dict, st: dict, ctx: BitmaskCtx2, work: dict | None =
     attempts, and those in an outer domain); "tests" (attempts that test
     a bit: neither a region change nor a step out of the volume or grid);
     "hits"; "restores"; "classify" (outer hits classified through a
-    page) and "pushes" (those that enter a voxel grid)."""
+    page) and "pushes" (those that enter a voxel grid); and rays, each
+    counted once: "walking" (not done at launch), "macro_rays" (those
+    that take a macro step or push: they read their origin and
+    direction), "hit_rays" (those that end on a hit) and "grid_rays"
+    (those inside a voxel grid at launch or entering one)."""
     s = {k: v.clone() for k, v in st.items()}
     ox, oy, oz = rays["ox"], rays["oy"], rays["oz"]
     dx, dy, dz = rays["dx"], rays["dy"], rays["dz"]
@@ -410,6 +420,11 @@ def megakernel_plain(rays: dict, st: dict, ctx: BitmaskCtx2, work: dict | None =
 
     if work is not None:
         work["rays"] = work.get("rays", 0) + ox.shape[0]
+    count("walking", s["mode"] != MODE_DONE)
+    # Per ray: took a macro step or pushed; ended on a hit; in a grid.
+    read_ray = torch.zeros_like(ox, dtype=torch.bool)
+    ended_hit = torch.zeros_like(read_ray)
+    in_grid = (s["mode"] != MODE_DONE) & (s["dom"] >= n_regions)
     for _ in range(MAX_ITERS):
         if not bool((s["mode"] != MODE_DONE).any()):
             break
@@ -424,6 +439,7 @@ def megakernel_plain(rays: dict, st: dict, ctx: BitmaskCtx2, work: dict | None =
         inb = ~outside(cx, cy, cz, sx, sy, sz)
         in_empty = walking & ~inner & (l1bit == 0) & inb
         count("macro_steps", in_empty)
+        read_ray |= in_empty
         rbx, rby, rbz = ((cx >> 4) + spx) << 4, ((cy >> 4) + spy) << 4, ((cz >> 4) + spz) << 4
         rtx = _w(stx == 0, inf, (rbx.float() - ox) * ivx)
         rty = _w(sty == 0, inf, (rby.float() - oy) * ivy)
@@ -490,6 +506,7 @@ def megakernel_plain(rays: dict, st: dict, ctx: BitmaskCtx2, work: dict | None =
             count("outer_steps", act & ~inner)
             count("tests", commit & ~out_exit & ~in_exit)
             count("hits", hit_now)
+            ended_hit |= hit_now & inner
             s["dom"] = _w(act & region_change, new_dom, dom)
             s["cx"], s["cy"], s["cz"] = _w(commit, ncx, cx), _w(commit, ncy, cy), _w(commit, ncz, cz)
             s["tmx"], s["tmy"], s["tmz"] = _w(commit, utx, tmx), _w(commit, uty, tmy), _w(commit, utz, tmz)
@@ -526,6 +543,7 @@ def megakernel_plain(rays: dict, st: dict, ctx: BitmaskCtx2, work: dict | None =
         if not has_vox:
             s["hit"] = _w(pend, HIT_OUTER, s["hit"])
             s["mode"] = _w(pend, MODE_DONE, s["mode"])
+            ended_hit |= pend
             continue
         local = ((((s["hx"] & 15) << 4) + (s["hy"] & 15)) << 4) + (s["hz"] & 15)
         page = ctx.page_idx[s["dom"].clamp(0, n_regions - 1).long(), 0]
@@ -550,6 +568,9 @@ def megakernel_plain(rays: dict, st: dict, ctx: BitmaskCtx2, work: dict | None =
         count("classify", pend)
         count("pushes", is_vox)
         atom = pend & ~is_vox
+        read_ray |= is_vox
+        in_grid |= is_vox
+        ended_hit |= atom
         s["hit"] = _w(atom, HIT_OUTER, s["hit"])
         s["pidx"] = _w(atom, atom_pidx, s["pidx"])
         s["mode"] = _w(atom, MODE_DONE, s["mode"])
@@ -593,66 +614,97 @@ def megakernel_plain(rays: dict, st: dict, ctx: BitmaskCtx2, work: dict | None =
         s["pidx"] = _w(is_vox, vent, s["pidx"])
         s["resl"] = _w(is_vox, rl, s["resl"])
         s["mode"] = _w(is_vox, MODE_WALK, s["mode"])
+    count("macro_rays", read_ray)
+    count("hit_rays", ended_hit)
+    count("grid_rays", in_grid)
     return s
 
 
 def _fn():
     lib = kernels.load_library("trace")
     fn = lib.aic_trace_megakernel
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 12 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def launch_megakernel(rays: PackedRays, st_in: torch.Tensor, ctx: BitmaskCtx2) -> torch.Tensor:
-    """Launch `csrc/trace.cu` once over all rays on packed inputs (the
-    state as `pack_fields(st, STATE_FIELDS, FLOAT_FIELDS)`); returns the
-    packed i32[28, m] state it leaves."""
+def launch_megakernel(rays: PackedRays, state: torch.Tensor, ctx: BitmaskCtx2,
+                      idx: torch.Tensor | None = None) -> None:
+    """Launch `csrc/trace.cu` over the rays `idx` (i64[n]) of the packed
+    state `state` (i32[28, m], `pack_fields(st, STATE_FIELDS,
+    FLOAT_FIELDS)`), or over all m rays without a list, in place: each
+    listed ray whose mode is WALK walks to its end or its budget; columns
+    off the list are neither read nor written. An empty list launches
+    nothing."""
     global LAUNCHES
     dev = ctx.rows.device
     m = rays.f.shape[1]
+    n = m if idx is None else idx.shape[0]
     req = kernels.require
     req(rays.f, "rays", torch.float32, (9, m), dev)
     req(rays.i, "ray steps", torch.int32, (3, m), dev)
-    req(st_in, "state", torch.int32, (len(STATE_FIELDS), m), dev)
+    req(state, "state", torch.int32, (len(STATE_FIELDS), m), dev)
     req(ctx.l1, "l1", torch.int32, (1, 128), dev)
     req(ctx.rows, "rows", torch.int32, (ctx.rows.shape[0], 128), dev)
+    if idx is not None:
+        req(idx, "ray list", torch.int64, (n,), dev)
     has_vox = ctx.pages is not None
     if has_vox:
         req(ctx.page_idx, "page_idx", torch.int32, (ctx.page_idx.shape[0], 8), dev)
         req(ctx.pages, "pages", torch.int32, (ctx.pages.shape[0], 128), dev)
-    st_out = torch.empty_like(st_in)
+    if n == 0:
+        return
     ptr = kernels.ptr
     null = ctypes.c_void_p(0)
     err = _fn()(
-        ptr(rays.f), ptr(rays.i), ptr(st_in), ptr(st_out), ptr(ctx.l1), ptr(ctx.rows),
+        ptr(rays.f), ptr(rays.i), ptr(state), null if idx is None else ptr(idx), n, m,
+        ptr(ctx.l1), ptr(ctx.rows),
         ptr(ctx.page_idx) if has_vox else null, ptr(ctx.pages) if has_vox else null,
-        m, MAX_ITERS, SUBSTEPS, ctx.n_regions, ctx.rows.shape[0],
+        MAX_ITERS, SUBSTEPS, ctx.n_regions, ctx.rows.shape[0],
         ctx.size[0], ctx.size[1], ctx.size[2], ctx.rdims[1], ctx.rdims[2],
         int(has_vox), int(ctx.has_r32), int(ctx.wide_pages),
         kernels.stream_ptr(dev),
     )
     LAUNCHES += 1
     kernels.check_launch(err, "trace megakernel")
-    return st_out
 
 
 def megakernel_cuda(rays: dict, st: dict, ctx: BitmaskCtx2) -> dict:
-    """Pack, then launch `csrc/trace.cu` once over all rays; same contract
-    as `megakernel_plain`."""
-    st_in = pack_fields(st, STATE_FIELDS, FLOAT_FIELDS)
-    return unpack_fields(launch_megakernel(PackedRays.pack(rays), st_in, ctx), STATE_FIELDS, FLOAT_FIELDS)
+    """Pack, then launch `csrc/trace.cu` once with every ray listed, on
+    the packed copy; same contract as `megakernel_plain`. Writes none of
+    its inputs."""
+    buf = pack_fields(st, STATE_FIELDS, FLOAT_FIELDS)
+    launch_megakernel(PackedRays.pack(rays), buf, ctx)
+    return unpack_fields(buf, STATE_FIELDS, FLOAT_FIELDS)
 
 
 def run_megakernel(rays: dict, st: dict, ctx: BitmaskCtx2) -> dict:
-    """One megakernel launch: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    """One megakernel launch over all rays: the kernel for CUDA tensors,
+    the plain version for CPU tensors."""
     dev = ctx.rows.device
     if dev.type == "cuda":
         return megakernel_cuda(rays, st, ctx)
     if dev.type == "cpu":
         return megakernel_plain(rays, st, ctx)
     raise ValueError(f"no megakernel for device {dev}")
+
+
+def walk_phase(rays: PackedRays, buf: torch.Tensor, ctx: BitmaskCtx2, idx: torch.Tensor) -> None:
+    """One phase's walk of the listed rays `idx` (i64[n]) of the packed
+    state `buf` (i32[28, m]), in place: the kernel reads and writes them
+    through the list on CUDA; on the CPU the plain version runs on the
+    gathered columns and they are scattered back. Columns off the list
+    keep theirs, as an all-ray launch leaves a done ray."""
+    dev = ctx.rows.device
+    if dev.type == "cuda":
+        launch_megakernel(rays, buf, ctx, idx)
+    elif dev.type == "cpu":
+        st = unpack_fields(buf[:, idx], STATE_FIELDS, FLOAT_FIELDS)
+        out = megakernel_plain(rays.take(idx).fields(), st, ctx)
+        buf[:, idx] = pack_fields(out, STATE_FIELDS, FLOAT_FIELDS)
+    else:
+        raise ValueError(f"no megakernel for device {dev}")
 
 
 def initial_state(state: SpaceState, o: torch.Tensor, d: torch.Tensor, ctx: BitmaskCtx2):
@@ -688,20 +740,85 @@ def initial_state(state: SpaceState, o: torch.Tensor, d: torch.Tensor, ctx: Bitm
     return rays, st, entry
 
 
+MODE_ROW, HIT_ROW = STATE_FIELDS.index("mode"), STATE_FIELDS.index("hit")
+
+
+def _hit_buffers(st: dict, ctx: BitmaskCtx2, state: SpaceState) -> dict:
+    """The shader's hit buffers from a phase's state (`_trace_pallas_impl2`'s
+    glue): the hit kind, the atom's palette id (in page-less scenes read
+    from the contents), the voxel's flat index, face, t, next t and the
+    hit cube (a voxel's block cube)."""
+    max_r = state.tables.padded_voxel_resolution
+    sx, sy, sz = ctx.size
+    atomh = st["hit"] == HIT_OUTER
+    innerh = st["hit"] == HIT_INNER
+    if ctx.pages is not None:
+        payload = st["pidx"]
+    else:
+        # Page-less scenes: the atom's palette id is its contents entry
+        # (what `aic_tpu` reads from the brick cells).
+        hx = st["hx"].clamp(0, sx - 1)
+        hy = st["hy"].clamp(0, sy - 1)
+        hz = st["hz"].clamp(0, sz - 1)
+        payload = state.contents.reshape(-1)[((hx * sy + hy) * sz + hz).long()] & 0xFFFF
+    vflat = st["pidx"] * max_r**3 + (st["hx"] * max_r + st["hy"]) * max_r + st["hz"]
+    block_cube = torch.stack([st["scx"], st["scy"], st["scz"]], -1)
+    hit_cube = torch.stack([st["hx"], st["hy"], st["hz"]], -1)
+    zero = torch.zeros_like(payload)
+    return dict(
+        hit_kind=torch.where(atomh, HIT_ATOM, torch.where(innerh, HIT_VOXEL, TR_HIT_NONE)),
+        hit_idx=_w(atomh, payload, zero),
+        hit_vflat=_w(innerh, vflat, zero),
+        hit_face=st["face"],
+        hit_t=st["t"],
+        hit_next_t=st["nt"],
+        hit_cube=torch.where(innerh[:, None], block_cube, hit_cube),
+    )
+
+
 def _phases_v2(ctx: BitmaskCtx2, rays: dict, st: dict, shade_fn, state: SpaceState):
-    """The megakernel phase loop: each of up to `PHASES` phases launches
-    the kernel once, then shades the phase's hits; a ray resumes in the
-    next phase while its transmittance is at least 1/256. Returns (light,
-    transmittance, unfinished), the sky not yet added."""
+    """The megakernel phase loop: each of up to `PHASES` phases walks its
+    rays to their next surface, then shades the phase's hits; a ray
+    resumes in the next phase while its transmittance is at least 1/256.
+    The ray constants are packed once and the 28 state fields carried in
+    one packed i32[28, m] buffer, which the shader reads as row views.
+    Each phase lists the rays that walk in it -- in the first those that
+    meet the volume, later the resuming ones -- and walks only them, in
+    place (`walk_phase`); a phase with an empty list launches nothing.
+    Returns (light, transmittance, unfinished), the sky not yet added.
+    Equals `phases_all_rays` bit for bit."""
     dev = ctx.rows.device
     m = rays["ox"].shape[0]
-    tables = state.tables
-    max_r = tables.padded_voxel_resolution
-    vox_r3 = max_r * max_r * max_r
-    has_vox = ctx.pages is not None
-    flat_contents = state.contents.reshape(-1)
-    sx, sy, sz = ctx.size
+    packed = PackedRays.pack(rays)
+    buf = pack_fields(st, STATE_FIELDS, FLOAT_FIELDS)
+    s = unpack_fields(buf, STATE_FIELDS, FLOAT_FIELDS)
+    light_acc = torch.zeros((m, 3), dtype=torch.float32, device=dev)
+    trans_acc = torch.ones(m, dtype=torch.float32, device=dev)
+    unfinished = torch.zeros((), dtype=torch.bool, device=dev)
+    idx = torch.nonzero(buf[MODE_ROW] == MODE_WALK).squeeze(1)
+    if idx.numel() == 0:
+        return light_acc, trans_acc, False
+    for _phase in range(PHASES):
+        walk_phase(packed, buf, ctx, idx)
+        unfinished = unfinished | (s["mode"] != MODE_DONE).any()
+        has_hit = s["hit"] != HIT_NONE
+        if bool(has_hit.any()):
+            light_acc, trans_acc = shade_fn(_hit_buffers(s, ctx, state), light_acc, trans_acc)
+        resume = has_hit & (trans_acc >= 1.0 / 256.0)
+        if not bool(resume.any()):
+            break
+        idx = torch.nonzero(resume).squeeze(1)
+        buf[MODE_ROW] = resume.to(torch.int32)
+        buf[HIT_ROW] = 0
+    return light_acc, trans_acc, bool(unfinished)
 
+
+def phases_all_rays(ctx: BitmaskCtx2, rays: dict, st: dict, shade_fn, state: SpaceState):
+    """The same phase loop with every phase one launch over all rays on
+    per-field state, repacked each phase (`run_megakernel`), as `aic_tpu`
+    runs it: the reference that `_phases_v2` equals bit for bit."""
+    dev = ctx.rows.device
+    m = rays["ox"].shape[0]
     light_acc = torch.zeros((m, 3), dtype=torch.float32, device=dev)
     trans_acc = torch.ones(m, dtype=torch.float32, device=dev)
     unfinished = torch.zeros((), dtype=torch.bool, device=dev)
@@ -710,31 +827,7 @@ def _phases_v2(ctx: BitmaskCtx2, rays: dict, st: dict, shade_fn, state: SpaceSta
         unfinished = unfinished | (st["mode"] != MODE_DONE).any()
         has_hit = st["hit"] != HIT_NONE
         if bool(has_hit.any()):
-            atomh = st["hit"] == HIT_OUTER
-            innerh = st["hit"] == HIT_INNER
-            if has_vox:
-                payload = st["pidx"]
-            else:
-                # Page-less scenes: the atom's palette id is its contents
-                # entry (what `aic_tpu` reads from the brick cells).
-                hx = st["hx"].clamp(0, sx - 1)
-                hy = st["hy"].clamp(0, sy - 1)
-                hz = st["hz"].clamp(0, sz - 1)
-                payload = flat_contents[((hx * sy + hy) * sz + hz).long()] & 0xFFFF
-            vflat = st["pidx"] * vox_r3 + (st["hx"] * max_r + st["hy"]) * max_r + st["hz"]
-            block_cube = torch.stack([st["scx"], st["scy"], st["scz"]], -1)
-            hit_cube = torch.stack([st["hx"], st["hy"], st["hz"]], -1)
-            zero = torch.zeros_like(payload)
-            hb = dict(
-                hit_kind=torch.where(atomh, HIT_ATOM, torch.where(innerh, HIT_VOXEL, TR_HIT_NONE)),
-                hit_idx=_w(atomh, payload, zero),
-                hit_vflat=_w(innerh, vflat, zero),
-                hit_face=st["face"],
-                hit_t=st["t"],
-                hit_next_t=st["nt"],
-                hit_cube=torch.where(innerh[:, None], block_cube, hit_cube),
-            )
-            light_acc, trans_acc = shade_fn(hb, light_acc, trans_acc)
+            light_acc, trans_acc = shade_fn(_hit_buffers(st, ctx, state), light_acc, trans_acc)
         resume = has_hit & (trans_acc >= 1.0 / 256.0)
         if not bool(resume.any()):
             break

@@ -24,12 +24,17 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    round) and on the atrium and `plaza640` 1920×1080 launch states. Then
    both trace paths on the same 1920×1080 rays, atrium and `plaza640`.
    Times at the main paths' shapes; K1 and K3 by their launch alone on
-   packed inputs (`launch_ms`), the packing apart, beside the kernels'
-   earlier times (`K1_EARLIER_MS`, `K3_EARLIER_MS`); bounds from the
-   twins' work counts (K3's from the rays that walk in the launch).
+   packed inputs (`launch_ms`; K1 launches in place, so each repetition
+   starts from a fresh copy of its state), the packing apart, beside the
+   kernels' earlier times (`K1_EARLIER_MS`, `K3_EARLIER_MS`); bounds from
+   the twins' work counts (`k1_bound`, `v1_bound`: the bytes the rays
+   walking in the launch need).
 4. slice   — the first main path at full size: atrium snapshot on the
    card, `evaluate_light_dense`, `render` at 1920×1080 with smooth
-   lighting (megakernel); launch counters, flaws, image checks; the
+   lighting (megakernel); launch counters, flaws, image checks; every K1
+   launch of a warm frame held against the twin on its listed rays and
+   timed alone (`k1_frame_launches`), the listed phase loop against the
+   all-ray loop bit for bit and the trace stage through both; the
    relight one stage at a time.
 5. slice   — the second main path: `plaza640` (640×8×640, megakernel
    tables over budget) the same way, traced by the v1 kernel; PNGs of
@@ -72,14 +77,17 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    the counters set to 0, `evaluate_light` (the fall-back to w = 1
    printed, not an error), a 1920x1080 frame, 35 + 60 steps as bench.py's
    `step_demo_city_ms` steps it (each synchronized; palette-growing steps
-   apart) and a frame of the stepped world; the counters read. Then the
+   apart) and a frame of the stepped world; the counters read. Then
+   every K1 launch of the first and the stepped frames against the twin,
+   timed alone, and the listed phase loop against the all-ray loop; the
    busiest timed batch against the plain walk, the phases' spans, 60
    more steps with each listed launch timed by CUDA events, and a
    palette-growing commit.
-8. the kernels line (JSON; K2's listed mode as `relight_batch`, from
-   the atrium step's batch that walked the most rows; launches summed
-   over every main path, demo-city's included), the `nvidia-smi` line,
-   and the last line {"ok": true, "device": {...}}.
+8. the kernels line (JSON; K1's row from demo-city's frame, its phases'
+   launches summed; K2's listed mode as `relight_batch`, from the atrium
+   step's batch that walked the most rows; launches summed over every
+   main path, demo-city's included), the `nvidia-smi` line, and the last
+   line {"ok": true, "device": {...}}.
 
 Needs CUDA and the `aic_tpu_torch` package beside this file; imports no
 JAX.
@@ -126,8 +134,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 OPS = {
     "trace_megakernel": {
-        "rays": 97, "iters": 14, "outer_iters": 5, "macro_steps": 84, "steps": 49,
-        "outer_steps": 3, "tests": 15, "hits": 4, "restores": 3, "classify": 29, "pushes": 115,
+        "walking": 48, "iters": 2, "outer_iters": 4, "macro_steps": 102, "steps": 23,
+        "outer_steps": 6, "tests": 13, "hits": 18, "restores": 18, "classify": 21, "pushes": 172,
     },
     "trace_v1": {
         "rays": 35, "walking": 20, "outer_iters": 6, "macro_steps": 86, "steps": 23,
@@ -149,13 +157,21 @@ K2_EARLIER_MS = {
     ("plaza640", False): 8.255, ("plaza640", True): 7.787,
 }
 
-#: K1 and K3 as they were before K3's redesign (the all-ray round loop
-#: and the one-walk `trace_v1.cu`), timed launch only on packed inputs as
-#: this script times them (PERF.md's kernel table, "earlier" column; NVIDIA
-#: H100 80GB HBM3, 700.00 W), printed beside this run's times as
-#: constants. Keys: `compare_trace` / `compare_v1` labels, and the rounds
-#: of a warm plaza640 frame (each an all-ray launch then).
-K1_EARLIER_MS = {"atoms": 0.022, "voxels": 0.022, "r32": 0.034, "atrium 1920x1080": 0.265}
+#: K1 and K3 as they were before their redesigns (K1: the all-ray phase
+#: loop and the one-walk `trace.cu` that read and wrote all 28 fields of
+#: every ray; K3: the all-ray round loop and the one-walk `trace_v1.cu`),
+#: timed launch only on packed inputs as this script times them (PERF.md's
+#: kernel table, "earlier" column; NVIDIA H100 80GB HBM3, 700.00 W),
+#: printed beside this run's times as constants. Keys: `compare_trace` /
+#: `compare_v1` labels, the phases of the atrium's, demo-city's and the
+#: stepped demo-city's 1080p frames and the rounds of a warm plaza640
+#: frame (each an all-ray launch then).
+K1_EARLIER_MS = {
+    "atoms": 0.022, "voxels": 0.021, "r32": 0.034, "atrium 1920x1080": 0.262,
+    "demo-city 1920x1080": 0.514, "plaza640 1920x1080": 0.685,
+    "atrium phase 1": 0.2619, "demo-city phase 1": 0.5096, "demo-city phase 2": 0.1747,
+    "demo-city stepped phase 1": 0.5126, "demo-city stepped phase 2": 0.1746,
+}
 K3_EARLIER_MS = {
     "atoms": 0.029, "voxels": 0.025, "atrium 1920x1080": 0.188, "plaza640 1920x1080": 0.635,
     "plaza640 round 1": 0.6308, "plaza640 round 2": 0.0886, "plaza640 round 3": 0.1027,
@@ -277,18 +293,25 @@ SPIN_CYCLES = 4_000_000
 SPIN_CYCLES_ONE = 400_000
 
 
-def launch_ms(fn, reps: int) -> float:
+def launch_ms(fn, reps: int, fresh=None) -> float:
     """Mean device ms of `fn` over `reps` back-to-back calls (one warm-up
     first), a spin kernel queued ahead so that no host time enters. Where
     the host took longer to queue the calls than the spin ran (a wrapper
     whose host work outlasts a short kernel), the window would time the
-    host: it is measured again behind a spin four times as long."""
+    host: it is measured again behind a spin four times as long. With
+    `fresh`, each call is `fn(x)` on its own `x = fresh()`, all of them
+    made before the window opens (an in-place launch leaves its rays done:
+    a second launch on the same state would time no work)."""
     import torch
 
-    fn()
+    def inputs(n):
+        return [(fresh(),) for _ in range(n)] if fresh else [()] * n
+
+    fn(*inputs(1)[0])
     torch.cuda.synchronize()
     spin = SPIN_CYCLES
     while True:
+        args = inputs(reps)
         before = torch.cuda.Event(enable_timing=True)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -296,8 +319,8 @@ def launch_ms(fn, reps: int) -> float:
         torch.cuda._sleep(spin)
         start.record()
         t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
+        for a in args:
+            fn(*a)
         host_ms = (time.perf_counter() - t0) * 1e3
         end.record()
         torch.cuda.synchronize()
@@ -531,9 +554,11 @@ def _local_rays(state, o, d):
 
 
 def compare_trace(state, o, d, label):
-    """K1 against its plain twin from the phase-1 launch state. Times the
-    launch alone on packed inputs, and the packing apart. Returns (max abs
-    error of the float fields, launch ms, plain ms, bound ms, bound by)."""
+    """K1 against its plain twin from the phase-1 launch state, every ray
+    listed. Times the phase-1 launch alone (over the walking rays, in
+    place, each repetition from a fresh copy of the packed state made
+    outside the events), and the packing apart. Returns (max abs error of
+    the float fields, launch ms, plain ms, bound ms, bound by)."""
     import torch
     from aic_tpu_torch.raytrace import trace_kernel as tk
 
@@ -553,17 +578,32 @@ def compare_trace(state, o, d, label):
 
     packed, st_in = pack()
     ms_pack = launch_ms(pack, 20)
-    ms_k = launch_ms(lambda: tk.launch_megakernel(packed, st_in, ctx), 20)
+    idx = torch.nonzero(st_in[tk.MODE_ROW] == tk.MODE_WALK).squeeze(1)
+    ms_k = launch_ms(lambda x: tk.launch_megakernel(packed, x, ctx, idx), 20, fresh=st_in.clone)
     ms_p = cuda_ms(lambda: tk.megakernel_plain(rays, st, ctx), 2)
     m = o.shape[0]
-    moved = m * (12 * 4 + 2 * len(tk.STATE_FIELDS) * 4) + nbytes(ctx.rows, ctx.l1, ctx.page_idx, ctx.pages)
-    b_ms, b_by = bound("trace_megakernel", moved, work)
+    b_ms, b_by = k1_bound(ctx, work)
     earlier = K1_EARLIER_MS.get(label)
     earlier = f"{earlier:.3f} ms (constant, PERF.md)" if earlier else "not measured"
     phase("kernels", f"trace {label} {m} rays: 28 fields agree, max abs err {err:.3e}, "
           f"launch {ms_k:.3f} ms (parent, launch only: {earlier}), packing {ms_pack:.3f} ms, "
           f"plain {ms_p:.3f} ms, work {work}, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms_k:.1%} of it")
     return err, ms_k, ms_p, b_ms, b_by
+
+
+def k1_bound(ctx, work) -> tuple[float, str]:
+    """K1's bound for one launch: the bytes that the rays walking at launch
+    need -- each its step and inverse direction (24 B), its walk state
+    (`dom`, `cx..cz`, `tmx..tmz`: 28 B) in and out and its mode out (4 B);
+    a ray that ends on a hit its hit record (`hit`, `pidx`, `face`, `t`,
+    `nt`, `hx..hz`: 32 B) out; a ray that takes a macro step or pushes its
+    origin and direction (24 B); a ray inside a voxel grid at launch or
+    entering one its grid registers (`resl`, `vbase`, `tdx..tdz`) and the
+    7 saved registers (48 B), once -- plus the tables; the operations of
+    the branches they take. From the twin's `work` and the tables only."""
+    moved = (work.get("walking", 0) * (24 + 2 * 28 + 4) + work.get("hit_rays", 0) * 32
+             + work.get("macro_rays", 0) * 24 + work.get("grid_rays", 0) * 48)
+    return bound("trace_megakernel", moved + nbytes(ctx.rows, ctx.l1, ctx.page_idx, ctx.pages), work)
 
 
 def v1_bound(ctx, work) -> tuple[float, str]:
@@ -714,6 +754,91 @@ def v1_frame_launches(fn) -> list:
     return records
 
 
+def k1_frame_launches(fn) -> list:
+    """Every K1 launch made while `fn` runs, timed alone: a short spin
+    kernel queued ahead of each keeps the host's time out of its events.
+    Returns one dict per launch: its inputs (packed rays, a copy of the
+    state before it, the list), a copy of the state after it, and its
+    events."""
+    import torch
+    from aic_tpu_torch.raytrace import trace_kernel as tk
+
+    real = tk.launch_megakernel
+    records = []
+
+    def timed(rays, st, ctx, idx):
+        before = st.clone()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES_ONE)
+        start.record()
+        real(rays, st, ctx, idx)
+        end.record()
+        records.append(dict(rays=rays, st=before, idx=idx.clone(), out=st.clone(), ctx=ctx,
+                            events=(start, end)))
+
+    tk.launch_megakernel = timed
+    try:
+        fn()
+    finally:
+        tk.launch_megakernel = real
+    torch.cuda.synchronize()
+    return records
+
+
+def check_k1_launches(records, label) -> list:
+    """Each recorded K1 launch of a frame against the plain twin on the
+    listed rays: the 28 fields agree, and the columns off the list are
+    the state's before the launch, bit for bit.
+    Then each launch replayed alone (launch only, mean of 20, each from a
+    fresh copy of its input state made outside the events), the twin on
+    the same rays, and `k1_bound`. Returns per launch (walking rays,
+    in-frame ms, replayed ms, bound ms, bound by, max abs err, plain ms)."""
+    import torch
+    from aic_tpu_torch.raytrace import trace_kernel as tk
+
+    rows = []
+    for p, rec in enumerate(records, 1):
+        rays, st, idx, ctx, out = rec["rays"], rec["st"], rec["idx"], rec["ctx"], rec["out"]
+        fields = rays.take(idx).fields()
+        st_d = tk.unpack_fields(st[:, idx], tk.STATE_FIELDS, tk.FLOAT_FIELDS)
+        work: dict = {}
+        want = tk.megakernel_plain(fields, st_d, ctx, work=work)
+        got = tk.unpack_fields(out[:, idx], tk.STATE_FIELDS, tk.FLOAT_FIELDS)
+        err = _fields_agree(got, want, tk.STATE_FIELDS, tk.FLOAT_FIELDS, f"trace {label} phase {p}")
+        off = torch.ones(st.shape[1], dtype=torch.bool, device=st.device)
+        off[idx] = False
+        if not torch.equal(out[:, off], st[:, off]):
+            fail(f"trace {label} phase {p}: the launch wrote columns off its list")
+        ms_frame = rec["events"][0].elapsed_time(rec["events"][1])
+        ms = launch_ms(lambda x: tk.launch_megakernel(rays, x, ctx, idx), 20, fresh=st.clone)
+        ms_p = cuda_ms(lambda: tk.megakernel_plain(fields, st_d, ctx), 1)
+        b_ms, b_by = k1_bound(ctx, work)
+        rows.append((int(work["walking"]), ms_frame, ms, b_ms, b_by, err, ms_p))
+        earlier = K1_EARLIER_MS.get(f"{label} phase {p}")
+        earlier = f"{earlier:.4f} ms (constant, PERF.md)" if earlier else "not measured"
+        phase("kernels", f"trace {label} phase {p}: {work['walking']} walking rays of {st.shape[1]}, 28 fields "
+              f"agree with the twin (max abs err {err:.3e}), {int(off.sum())} columns off the list untouched; launch {ms:.4f} ms (in the frame "
+              f"{ms_frame:.4f} ms; parent: {earlier}), plain {ms_p:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{b_ms / ms:.1%} of it; work {work}")
+        del rec["out"], rec["st"]
+    torch.cuda.synchronize()
+    return rows
+
+
+def k1_frame_summary(rows, label) -> tuple:
+    """One line for a frame's K1 launches (`check_k1_launches`' rows);
+    returns the frame as a kernels-line entry: (max abs err, summed launch
+    ms, summed plain ms, summed bound ms, what bounds the largest)."""
+    if not rows:
+        fail(f"trace {label}: the frame launched no K1")
+    phase("kernels", f"trace {label} frame: {len(rows)} K1 launches, walking rays {[r[0] for r in rows]}; "
+          f"launch only (ms) {[round(r[2], 4) for r in rows]}, sum {sum(r[2] for r in rows):.4f} (in the frame "
+          f"{sum(r[1] for r in rows):.4f}); bound {sum(r[3] for r in rows):.4f} ms")
+    return (max(r[5] for r in rows), sum(r[2] for r in rows), sum(r[6] for r in rows),
+            sum(r[3] for r in rows), max(rows, key=lambda r: r[3])[4])
+
+
 def host_ms(fn, reps: int, setup=None) -> float:
     """Mean host-clock ms of `fn(setup())` between synchronizations, the
     set-up outside the clock."""
@@ -764,21 +889,34 @@ def check_v1_rounds(records, label, state) -> list:
     return rows
 
 
-def check_v1_frame(state, o, d, opts, label) -> None:
-    """The walking-list round loop against the all-ray loop (`aic_tpu`'s:
-    every round a launch over all rays and the per-field glue `advance`)
-    on one frame's rays: every phase's hit buffers, the light, the
-    transmittance and `unfinished` bit for bit; a launch over an empty
-    list launches nothing. Then the trace stage through each loop, host
-    clock, alternated (all rays, walking lists, walking lists, all rays;
-    five times)."""
+def check_listed_frame(state, o, d, opts, label, megakernel) -> None:
+    """A trace path's listed loop (K1: `_phases_v2`, each phase over its
+    walking rays; K3: `trace_phases_v1`, each round over its walking rays)
+    against its all-ray loop (`aic_tpu`'s: every launch over all rays, on
+    per-field state) on one frame's rays: every phase's hit buffers, the
+    light, the transmittance and `unfinished` bit for bit; a launch over
+    an empty list launches nothing. Then the trace stage through each
+    loop, host clock, alternated (all rays, listed, listed, all rays; five
+    times)."""
     import torch
     from aic_tpu_torch.raytrace import trace_kernel as tk
     from aic_tpu_torch.raytrace import trace_kernel_v1 as v1
 
+    owner, name, all_rays = ((tk, "_phases_v2", tk.phases_all_rays) if megakernel
+                             else (v1, "trace_phases_v1", v1.trace_phases_all_rays))
+    listed = getattr(owner, name)
+    kernel = "trace" if megakernel else "trace v1"
+
+    def with_loop(loop, fn):
+        setattr(owner, name, loop)
+        try:
+            return fn()
+        finally:
+            setattr(owner, name, listed)
+
     def traced(loop):
         hits = []
-        real_shader, real_loop = tk.make_phase_shader, v1.trace_phases_v1
+        real_shader = tk.make_phase_shader
 
         def recording_shader(*args):
             shade = real_shader(*args)
@@ -788,41 +926,46 @@ def check_v1_frame(state, o, d, opts, label) -> None:
                 return shade(hb, la, ta)
             return f
 
-        tk.make_phase_shader, v1.trace_phases_v1 = recording_shader, loop
+        tk.make_phase_shader = recording_shader
         try:
-            light, trans, unfinished = tk.trace_rays_kernel(state, o, d, opts, megakernel=False)
+            light, trans, unfinished = with_loop(
+                loop, lambda: tk.trace_rays_kernel(state, o, d, opts, megakernel=megakernel))
         finally:
-            tk.make_phase_shader, v1.trace_phases_v1 = real_shader, real_loop
+            tk.make_phase_shader = real_shader
         return light, trans, unfinished, hits
 
-    a, b = traced(v1.trace_phases_v1), traced(v1.trace_phases_all_rays)
+    a, b = traced(listed), traced(all_rays)
     torch.cuda.synchronize()
     same = (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and a[2] == b[2] and len(a[3]) == len(b[3])
             and all(torch.equal(x[k], y[k]) for x, y in zip(a[3], b[3]) for k in x))
     if not same:
-        fail(f"trace v1 {label}: the walking-list frame differs from the all-ray frame")
-    ctx = v1.get_bitmask_ctx(state)
+        fail(f"{kernel} {label}: the listed frame differs from the all-ray frame")
     m = 4
     rays = tk.PackedRays(torch.zeros((9, m), device=o.device), torch.zeros((3, m), dtype=torch.int32, device=o.device))
-    before = v1.LAUNCHES
-    out = v1.launch(rays, torch.zeros((9, m), dtype=torch.int32, device=o.device), ctx,
-                    torch.zeros(0, dtype=torch.int64, device=o.device))
-    if v1.LAUNCHES != before or out.shape != (15, 0):
-        fail(f"trace v1 {label}: an empty walking list launched the kernel")
-    stage_ms = {v1.trace_phases_v1: [], v1.trace_phases_all_rays: []}
-    real_loop = v1.trace_phases_v1
-    for loop in [v1.trace_phases_all_rays, v1.trace_phases_v1, v1.trace_phases_v1, v1.trace_phases_all_rays] * 5:
-        v1.trace_phases_v1 = loop
-        try:
-            stage_ms[loop].append(host_ms(lambda _: tk.trace_rays_kernel(state, o, d, opts, megakernel=False), 1))
-        finally:
-            v1.trace_phases_v1 = real_loop
+    empty = torch.zeros(0, dtype=torch.int64, device=o.device)
+    if megakernel:
+        before = tk.LAUNCHES
+        buf = torch.ones((len(tk.STATE_FIELDS), m), dtype=torch.int32, device=o.device)
+        tk.launch_megakernel(rays, buf, tk.get_bitmask_ctx2(state), empty)
+        torch.cuda.synchronize()
+        launched = tk.LAUNCHES != before or bool((buf != 1).any())
+    else:
+        before = v1.LAUNCHES
+        out = v1.launch(rays, torch.zeros((9, m), dtype=torch.int32, device=o.device), v1.get_bitmask_ctx(state),
+                        empty)
+        launched = v1.LAUNCHES != before or out.shape != (15, 0)
+    if launched:
+        fail(f"{kernel} {label}: an empty list launched the kernel")
+    stage_ms = {listed: [], all_rays: []}
+    for loop in [all_rays, listed, listed, all_rays] * 5:
+        stage_ms[loop].append(host_ms(lambda _: with_loop(
+            loop, lambda: tk.trace_rays_kernel(state, o, d, opts, megakernel=megakernel)), 1))
     ms_list, ms_all = (sum(t) / len(t) for t in stage_ms.values())
     med_list, med_all = (sorted(t)[len(t) // 2] for t in stage_ms.values())
-    phase("kernels", f"trace v1 {label}: walking-list frame equals the all-ray frame bit for bit "
+    phase("kernels", f"{kernel} {label}: listed frame equals the all-ray frame bit for bit "
           f"({len(a[3])} phases' hit buffers, light, transmittance, unfinished {a[2]}); an empty list "
           f"launches nothing; trace stage (host clock, synchronized, alternated, 10 each; mean / median): "
-          f"walking lists {ms_list:.3f} / {med_list:.3f} ms, all rays (per-field glue) {ms_all:.3f} / "
+          f"listed {ms_list:.3f} / {med_list:.3f} ms, all rays (per-field state) {ms_all:.3f} / "
           f"{med_all:.3f} ms")
 
 
@@ -1585,6 +1728,12 @@ def city_world(dev, opts, reset_counts, read_counts) -> dict:
     if far.sum() > PIXEL_MAX_SHARE * far.size:
         fail(f"demo-city: {int(far.sum())} pixels of the stepped frame differ from a fresh snapshot's")
 
+    k1 = k1_frame_summary(check_k1_launches(k1_frame_launches(lambda: render(lit, cam)), "demo-city"),
+                          "demo-city")
+    k1_frame_summary(check_k1_launches(k1_frame_launches(lambda: render(st2, cam)), "demo-city stepped"),
+                     "demo-city stepped")
+    check_listed_frame(lit, *cam.pixel_rays(device=dev), cam.options, "demo-city 1920x1080", megakernel=True)
+
     u.profiler.reset()
     u.profiler.sync = torch.cuda.synchronize
     for _ in range(12):
@@ -1630,7 +1779,7 @@ def city_world(dev, opts, reset_counts, read_counts) -> dict:
     batch = check_batch(*busiest, "demo-city", f"busiest step round ({max(walked)} walked)", profile=True)
     phase("city", f"demo-city: K2 listed over {CITY_TICKS} steps after the timed ones: {tick_launches}; the "
           f"busiest batch of the timed steps {batch[1]:.4f} ms launch only")
-    return dict(counts=counts, relight=relight, trace=trace, batch=batch)
+    return dict(counts=counts, relight=relight, trace=trace, k1=k1, batch=batch)
 
 
 def main() -> None:
@@ -1709,7 +1858,7 @@ def main() -> None:
     for label, sp in dict(small, atrium=atrium_space).items():
         compare_converge(sp, label, dev)
     o, d = cam.pixel_rays(device=dev)
-    trace = compare_trace(atrium_state, o, d, "atrium 1920x1080")
+    compare_trace(atrium_state, o, d, "atrium 1920x1080")
     trace_v1_atrium = compare_v1(atrium_state, o, d, "atrium 1920x1080")
     compare_paths(atrium_state, o, d, opts, "atrium 1920x1080")
 
@@ -1773,6 +1922,8 @@ def main() -> None:
     save_png(frame, os.path.join(HERE, "aic_tpu_torch", "_build", "atrium_1080p.png"))
     phase("slice", f"atrium 1920x1080 smoothstep: {frame_ms:.1f} ms/frame warm "
           f"({1920 * 1080 / frame_ms / 1e3:.2f} Mrays/s), alpha coverage {coverage:.3f}")
+    k1_frame_summary(check_k1_launches(k1_frame_launches(lambda: render(state, cam)), "atrium"), "atrium")
+    check_listed_frame(state, *cam.pixel_rays(device=dev), cam.options, "atrium 1920x1080", megakernel=True)
     phase("slice", f"atrium relight stages (ms): {relight_stages(atrium_space, state, dev)}")
     compare_batch(state, "atrium")
     del state
@@ -1816,7 +1967,8 @@ def main() -> None:
     stages.update(relight_stages(plaza_space, state, dev))
     phase("slice", f"plaza640 stages (ms, one each, synchronized): {stages}")
     rounds = check_v1_rounds(v1_frame_launches(lambda: render(state, plaza_cam)), "plaza640", state)
-    check_v1_frame(state, *plaza_cam.pixel_rays(device=dev), plaza_cam.options, "plaza640 1920x1080")
+    check_listed_frame(state, *plaza_cam.pixel_rays(device=dev), plaza_cam.options, "plaza640 1920x1080",
+                       megakernel=False)
     phase("slice", f"plaza640 K3 launches of one warm frame: walking rays per round "
           f"{[r[0] for r in rounds]}; launch only (ms) {[round(r[2], 4) for r in rounds]}, sum "
           f"{sum(r[2] for r in rounds):.4f} (in the frame {sum(r[1] for r in rounds):.4f}); bound per frame "
@@ -1846,7 +1998,7 @@ def main() -> None:
     counts["relight_batch"] = (sum(st["counts"]["relight_batch"] for st in steps.values())
                                + city["counts"]["relight_batch"])
     rows = [
-        ("trace_megakernel", "aic_tpu_torch/csrc/trace.cu", "aic_tpu/raytrace/pallas_trace.py:1140", trace),
+        ("trace_megakernel", "aic_tpu_torch/csrc/trace.cu", "aic_tpu/raytrace/pallas_trace.py:1140", city["k1"]),
         ("relight_pass", "aic_tpu_torch/csrc/relight.cu", "aic_tpu/light/pallas_relight.py:338",
          relight["relight_pass"]),
         ("relight_pass_dyn", "aic_tpu_torch/csrc/relight.cu", "aic_tpu/light/pallas_relight.py:338",

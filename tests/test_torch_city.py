@@ -8,7 +8,8 @@ in) in the port against `aic_tpu`.
   octant rows and wide classify pages among the megakernel tables). A
   48×32 frame of it through K1's plain version equals `aic_tpu`'s
   `render_hdr` (its XLA tracer on the CPU) within 2e-3
-  (tests/test_pallas_trace.py:30).
+  (tests/test_pallas_trace.py:30), and its listed phase loop equals the
+  all-ray loop bit for bit (`tests/test_torch_phases.py`).
 - Size 48 (no exhibits): both universes from `build_universe`, `aic_tpu`'s
   state carried across (`to_port`), stepped 12 ticks from the fast light
   seed as bench.py's `step_demo_city_ms` steps it (bench.py:217-238; a
@@ -88,6 +89,22 @@ def test_city_frame_matches_aic_tpu(cities):
     assert float(got_l.max()) > 0.05
     np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), atol=PIXEL_ATOL)
     np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), atol=PIXEL_ATOL)
+
+
+def test_city_listed_phase_loop_matches_all_rays(cities, monkeypatch):
+    """`main.default_camera`'s 48×32 view of the full city through the
+    megakernel's listed phase loop equals the all-ray loop bit for bit
+    (K1's plain version on the CPU; R32 octant rows, wide pages)."""
+    from test_torch_phases import assert_bit_equal, frame_both_ways
+
+    ts = cities[1]
+    opts = GraphicsOptions(lighting_display="smoothstep", fog="none")
+    o, d = torch_main.default_camera(ts, W, H, opts).pixel_rays(device="cpu")
+    (got, want), listed = frame_both_ways(ts.snapshot(device="cpu"), o.reshape(-1, 3), d.reshape(-1, 3), opts,
+                                          monkeypatch)
+    assert_bit_equal(got, want)
+    assert listed[0] > 0
+    assert bool((got[3][0]["hit_kind"] != 0).any())
 
 
 def test_city48_steps_match_aic_tpu():

@@ -128,6 +128,103 @@ def test_trace_kernel_matches_plain(cuda_device, scene):
             assert torch.equal(got[k], want[k]), k
 
 
+def _assert_k1_fields(got, want):
+    for k in trace_kernel.STATE_FIELDS:
+        if k in trace_kernel.FLOAT_FIELDS:
+            torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=0)
+        else:
+            assert torch.equal(got[k], want[k]), k
+
+
+def _k1_state(st, o, d, device):
+    """K1's tables, packed rays and packed launch state for rays in world
+    coordinates."""
+    ctx = trace_kernel.get_bitmask_ctx2(st)
+    lower = torch.as_tensor(st.lower, dtype=torch.float32, device=device)
+    o = (torch.as_tensor(o, device=device).reshape(-1, 3) - lower).contiguous()
+    d = torch.as_tensor(d, device=device).reshape(-1, 3).contiguous()
+    r, s, _ = trace_kernel.initial_state(st, o, d, ctx)
+    return ctx, trace_kernel.PackedRays.pack(r), trace_kernel.pack_fields(
+        s, trace_kernel.STATE_FIELDS, trace_kernel.FLOAT_FIELDS)
+
+
+def _check_listed_launch(ctx, rays, buf, idx):
+    """K1 over the list `idx`, in place on a copy of `buf`: the listed
+    columns equal the twin's on those rays, the others are untouched.
+    Returns the launched copy."""
+    out = buf.clone()
+    before = trace_kernel.LAUNCHES
+    trace_kernel.launch_megakernel(rays, out, ctx, idx)
+    assert trace_kernel.LAUNCHES == before + 1
+    off = torch.ones(buf.shape[1], dtype=torch.bool, device=buf.device)
+    off[idx] = False
+    assert torch.equal(out[:, off], buf[:, off])
+    unpack = lambda b: trace_kernel.unpack_fields(b, trace_kernel.STATE_FIELDS, trace_kernel.FLOAT_FIELDS)  # noqa: E731
+    want = trace_kernel.megakernel_plain(rays.take(idx).fields(), unpack(buf[:, idx]), ctx)
+    assert bool((want["mode"] == trace_kernel.MODE_DONE).all())
+    _assert_k1_fields(unpack(out[:, idx]), want)
+    return out
+
+
+def _k1_scene_state(scene, device):
+    st = chip_smoke.trace_scenes(PKG)[scene].snapshot(device=device)
+    return _k1_state(st, *chip_smoke.random_rays(2048, -4.0, 24.0, seed=1), device)
+
+
+@pytest.mark.parametrize("scene", ["atoms", "voxels", "r32"])
+def test_trace_kernel_listed_in_place_matches_plain(cuda_device, scene):
+    """K1 over every third walking ray, in place: the listed rays agree
+    with the twin, the columns off the list are untouched."""
+    ctx, rays, buf = _k1_scene_state(scene, cuda_device)
+    walking = torch.nonzero(buf[trace_kernel.MODE_ROW] == trace_kernel.MODE_WALK).squeeze(1)
+    assert walking.numel() > 300
+    _check_listed_launch(ctx, rays, buf, walking[::3].contiguous())
+
+
+def test_trace_kernel_two_launches_bit_equal(cuda_device):
+    """Two launches from the same state give the same bits, over a list
+    and over all rays."""
+    ctx, rays, buf = _k1_scene_state("r32", cuda_device)
+    idx = torch.nonzero(buf[trace_kernel.MODE_ROW] == trace_kernel.MODE_WALK).squeeze(1)
+    for lst in (idx, None):
+        a, b = buf.clone(), buf.clone()
+        trace_kernel.launch_megakernel(rays, a, ctx, lst)
+        trace_kernel.launch_megakernel(rays, b, ctx, lst)
+        assert torch.equal(a, b) and not torch.equal(a, buf)
+
+
+def test_trace_kernel_empty_phase_launches_nothing(cuda_device):
+    """An empty list launches nothing and changes no column; a frame whose
+    rays all miss the volume launches nothing."""
+    ctx, rays, buf = _k1_scene_state("voxels", cuda_device)
+    before_buf = buf.clone()
+    before = trace_kernel.LAUNCHES
+    trace_kernel.launch_megakernel(rays, buf, ctx, torch.zeros(0, dtype=torch.int64, device=cuda_device))
+    torch.cuda.synchronize()
+    assert trace_kernel.LAUNCHES == before and torch.equal(buf, before_buf)
+    state = _voxel_scene_space().snapshot(device=cuda_device)
+    o = torch.full((8, 3), -5.0, device=cuda_device)
+    d = torch.tensor([[-1.0, 0.0, 0.0]], device=cuda_device).expand(8, 3).contiguous()
+    opts = GraphicsOptions(lighting_display="smoothstep", fog="none")
+    _l, t, unfinished = trace_kernel.trace_rays_kernel(state, o, d, opts, megakernel=True)
+    assert trace_kernel.LAUNCHES == before and not unfinished
+
+
+def test_trace_kernel_listed_frame_matches_all_rays(cuda_device, monkeypatch):
+    """The small atrium's megakernel frame through the listed phase loop
+    equals the all-ray loop's bit for bit, both through the kernel."""
+    space = atrium(width=24, depth=16, floors=2)
+    st = space.snapshot(device=cuda_device)
+    opts = GraphicsOptions(lighting_display="smoothstep", fog="none")
+    o, d = default_camera(space, 96, 64, opts).pixel_rays(device=cuda_device)
+    before = trace_kernel.LAUNCHES
+    a = trace_kernel.trace_rays_kernel(st, o, d, opts, megakernel=True)
+    assert trace_kernel.LAUNCHES > before
+    monkeypatch.setattr(trace_kernel, "_phases_v2", trace_kernel.phases_all_rays)
+    b = trace_kernel.trace_rays_kernel(st, o, d, opts, megakernel=True)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and a[2] == b[2]
+
+
 def _assert_v1_fields(got, want):
     for k in trace_kernel_v1.OUT_FIELDS:
         if k in trace_kernel_v1.FLOAT_FIELDS:
@@ -474,7 +571,8 @@ def test_universe_steps_on_the_card_like_the_cpu(cuda_device):
 def test_trace_kernel_matches_plain_on_demo_city(cuda_device):
     """K1 on full demo-city's state (R32 octant rows, wide classify pages)
     against its twin: a 320x180 sample of `main.default_camera`'s view and
-    4096 rays from inside the city, every field."""
+    4096 rays from inside the city, every field; with every ray listed,
+    and in place over the list of the walking rays."""
     from aic_tpu_torch.content import TemplateParameters, build_template_space
 
     sp = build_template_space("demo-city", TemplateParameters(seed=0, size=96))
@@ -498,6 +596,11 @@ def test_trace_kernel_matches_plain_on_demo_city(cuda_device):
             torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=0)
         else:
             assert torch.equal(got[k], want[k]), k
+    packed = trace_kernel.PackedRays.pack(r)
+    buf = trace_kernel.pack_fields(s, trace_kernel.STATE_FIELDS, trace_kernel.FLOAT_FIELDS)
+    walking = torch.nonzero(buf[trace_kernel.MODE_ROW] == trace_kernel.MODE_WALK).squeeze(1)
+    assert 0 < walking.numel() < buf.shape[1]
+    _check_listed_launch(ctx, packed, buf, walking)
 
 
 def test_demo_city_steps_on_the_card_like_the_cpu(cuda_device):
