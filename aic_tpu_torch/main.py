@@ -2,7 +2,8 @@
 
 Builds a template's universe on a device, relights it to convergence
 with `evaluate_light` (the dense passes for a freshly built world), and
-then either renders one frame to PNG (`--graphics record`) or steps the
+then renders one frame to PNG (`--graphics record`) or prints it to the
+terminal as 24-bit-colour half blocks (`--graphics print`), or steps the
 universe for `--duration` simulated seconds at 60 ticks a second without
 rendering (`--graphics headless`):
 
@@ -10,6 +11,8 @@ rendering (`--graphics headless`):
         --output frame.png --width 1920 --height 1080
     python -m aic_tpu_torch.main --template cornell-box --size 16 \\
         --graphics headless --duration 0.2 --device cpu
+    python -m aic_tpu_torch.main --template cornell-box --size 8 \\
+        --graphics print --width 40 --height 20 --device cpu
 
 `--device cuda` (the default) runs the relight, the step and the trace
 through the CUDA kernels and refuses to run without a card; `--device
@@ -50,10 +53,28 @@ def default_camera(space, width, height, options):
     return cam
 
 
+def ansi_image(data: np.ndarray) -> str:
+    """sRGB image → 24-bit-color half-block terminal art (terminal.rs
+    ray_image analog; `aic_tpu/main.py:68-86`)."""
+    h = data.shape[0] // 2 * 2
+    rows = []
+    for y in range(0, h, 2):
+        row = []
+        for x in range(data.shape[1]):
+            top = data[y, x]
+            bot = data[y + 1, x]
+            row.append(
+                f"\x1b[38;2;{top[0]};{top[1]};{top[2]}m"
+                f"\x1b[48;2;{bot[0]};{bot[1]};{bot[2]}m▀"
+            )
+        rows.append("".join(row) + "\x1b[0m")
+    return "\n".join(rows)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="aic-tpu-torch")
     p.add_argument("--template", default="cornell-box")
-    p.add_argument("--graphics", default="record", choices=["record", "headless"])
+    p.add_argument("--graphics", default="record", choices=["record", "print", "headless"])
     p.add_argument("--size", type=int, default=None, help="template size")
     p.add_argument("--width", type=int, default=120)
     p.add_argument("--height", type=int, default=80)
@@ -105,6 +126,9 @@ def main(argv=None):
     if r.flaws:
         print(f"[render] flaws: {', '.join(r.flaws)}", file=sys.stderr)
 
+    if args.graphics == "print":
+        print(ansi_image(r.data))
+        return
     save_png(r, args.output)
     print(f"wrote {args.output}", file=sys.stderr)
 

@@ -1,7 +1,9 @@
 """Color math (layer 0): sRGB encoding, torch port of `aic_tpu/math/color.py`.
 
-Only what the ported path uses is here: `linear_to_srgb8` for the frame
-finish, and the numpy twins that host content code calls.
+Only what the port calls is here: `linear_to_srgb8` for the frame
+finish, `luminance` for exposure and the ASCII print, `composite_over`
+for the renderer's layers, and the numpy twins that host content code
+and the renderer's NO_WORLD fill call.
 """
 
 from __future__ import annotations
@@ -17,6 +19,22 @@ def srgb_encode(c: torch.Tensor) -> torch.Tensor:
         c <= 0.0031308,
         c * (323.0 / 25.0),
         (211.0 * torch.pow(torch.clamp(c, min=1e-10), 5.0 / 12.0) - 11.0) / 200.0,
+    )
+
+
+def luminance(rgb: torch.Tensor) -> torch.Tensor:
+    """Rec.709 luminance of linear RGB (color.rs `Rgb::luminance`)."""
+    return rgb[..., 0] * 0.2126 + rgb[..., 1] * 0.7152 + rgb[..., 2] * 0.0722
+
+
+def composite_over(light, transmittance, surface_light, surface_transmittance):
+    """Front-to-back premultiplied-alpha accumulation
+    (raytracer_components.rs:87 `ColorBuf::add_color_internal`): the new
+    layer's light is scaled by the transmittance so far, then the
+    transmittance is multiplied in. Returns (light', transmittance')."""
+    return (
+        light + surface_light * transmittance[..., None],
+        transmittance * surface_transmittance,
     )
 
 

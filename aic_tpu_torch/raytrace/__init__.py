@@ -2,8 +2,9 @@
 
 from .camera import Camera, Viewport, look_at_transform
 from .options import GraphicsOptions
-from .render import Rendering, render, render_hdr, save_png
+from .render import Rendering, print_space_ascii, render, render_hdr, save_png
 from .trace_kernel import trace_rays_kernel
+from .tracer import trace_rays
 
 __all__ = [
     "Camera",
@@ -11,8 +12,10 @@ __all__ = [
     "Rendering",
     "Viewport",
     "look_at_transform",
+    "print_space_ascii",
     "render",
     "render_hdr",
     "save_png",
+    "trace_rays",
     "trace_rays_kernel",
 ]

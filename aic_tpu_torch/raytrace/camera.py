@@ -1,7 +1,8 @@
 """Camera: view/projection math and per-pixel ray generation.
 
 Port of `aic_tpu/raytrace/camera.py`: unchanged host math in float64;
-`pixel_rays` returns float32 torch tensors on the requested device.
+`pixel_rays` returns float32 torch tensors on the requested device, and
+`post_process` (exposure, tone mapping) runs on the tensor's device.
 
 Equivalent of reference `Camera`/`Viewport` (all-is-cubes/src/camera.rs:40,487):
 a DirectX-style (0..1 depth) perspective projection (camera.rs:385-400)
@@ -89,8 +90,20 @@ class Camera:
     def look_at(self, eye, target, up=(0.0, 1.0, 0.0)):
         self.set_view_transform(look_at_transform(eye, target, up))
 
+    @property
+    def view_position(self) -> np.ndarray:
+        return self.eye_to_world[:3, 3]
+
     def near_plane_distance(self) -> float:
         return 1.0 / 32.0  # camera.rs:199: half a voxel at resolution 16
+
+    def set_measured_exposure(self, e: float):
+        """camera.rs set_measured_exposure: only effective under
+        automatic exposure with lighting enabled."""
+        from .options import LIGHT_NONE
+
+        if self.options.exposure_auto and self.options.lighting_display != LIGHT_NONE:
+            self.exposure = float(e)
 
     def _compute(self):
         """camera.rs:384 compute_matrices."""
@@ -113,6 +126,17 @@ class Camera:
         )
         world_to_eye = np.linalg.inv(self.eye_to_world)
         self.inverse_projection_view = np.linalg.inv(projection @ world_to_eye)
+
+    def project_ndc_into_world(self, ndc_xy: np.ndarray):
+        """Host ray for one NDC point (camera.rs:235). Returns (origin, direction)."""
+        near = self._unproject(np.append(ndc_xy, 0.0))
+        far = self._unproject(np.append(ndc_xy, 1.0))
+        return near, far - near
+
+    def _unproject(self, ndc3):
+        with np.errstate(invalid="ignore"):
+            h = self.inverse_projection_view @ np.append(ndc3, 1.0)
+            return h[:3] / h[3]
 
     def pixel_rays(self, supersample: bool = False, device="cuda"):
         """Tensors of per-pixel rays on `device` (the card unless the
@@ -157,3 +181,18 @@ class Camera:
             torch.as_tensor(origins.astype(np.float32), device=device),
             torch.as_tensor(directions.astype(np.float32), device=device),
         )
+
+    def post_process(self, rgb: torch.Tensor) -> torch.Tensor:
+        """camera.rs:373 post_process_color: exposure then tone mapping,
+        on the tensor's device; rgb is (..., 3) HDR scene light."""
+        rgb = rgb * float(self.exposure)
+        maxi = self.options.maximum_intensity
+        if not np.isfinite(maxi):
+            # Without a finite maximum intensity no tone mapping occurs
+            # (graphics_options.rs:362-366).
+            return rgb
+        if self.options.tone_mapping == "reinhard":
+            # Luminance-based Reinhard (graphics_options.rs:373-376).
+            lum = rgb[..., 0] * 0.2126 + rgb[..., 1] * 0.7152 + rgb[..., 2] * 0.0722
+            return rgb / (1.0 + lum / float(maxi))[..., None]
+        return torch.clamp(rgb, max=float(maxi))

@@ -1,16 +1,22 @@
-"""Full-frame renderer: camera + megakernel tracer + frame finish → image.
+"""Full-frame renderer: camera + tracer + frame finish → image, and the
+render API around it.
 
 Port of `aic_tpu/raytrace/render.py` (the reference's `RtRenderer::draw`,
 all-is-cubes-render/src/raytracer/renderer.rs:183,543-556): per-pixel
-rays, traced by `trace_kernel.trace_rays_kernel`, then bloom, exposure,
-tone mapping and sRGB. The tracer is the megakernel where its tables fit
-and the v1 surface finder elsewhere, each the CUDA kernel for a state on
-the card and its plain twin on the CPU (`aic_tpu`'s 2^19-ray threshold
-for its XLA tracer is a TPU measurement, and that tracer is not ported
-yet).
+rays, traced, then bloom, exposure, tone mapping and sRGB. `render_hdr`
+picks the tracer by what holds the state, before anything is launched
+(`pick_tracer`): the megakernel (`trace_kernel.py`) where its tables fit,
+else the v1 surface finder (`trace_kernel_v1.py`) where its tables hold
+the state, else the general tracer (`tracer.trace_rays`), as `aic_tpu`
+falls back to its XLA tracer; each kernel is the CUDA kernel for a state
+on the card and its plain twin on the CPU. Bounce lighting goes through
+`tracer.trace_rays_bounce`. `render` first cuts a state of more than
+`AUTO_WINDOW_VOLUME` cubes down to the camera's view (`view_window`).
 
-Not ported yet: bounce lighting, depth and pixel-cost renders, and
-windowing of states larger than the megakernel's 4096 regions.
+Also here, on the general tracer's outputs: the pixel-cost heatmap, the
+depth image, per-phase hit folds, the ASCII print, scaled renders and
+the auto-exposure target. `aic_tpu`'s 2^19-ray threshold for its XLA
+tracer (`_use_pallas`) is a TPU measurement and is not ported.
 """
 
 from __future__ import annotations
@@ -22,10 +28,19 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..math.color import linear_to_srgb8
-from ..space.state import SpaceState
-from .camera import Camera
-from .trace_kernel import trace_rays_kernel
+from ..math.color import linear_to_srgb8, luminance
+from ..space.state import SpaceState, visible_light_volume, window_state
+from .camera import Camera, Viewport
+from .trace_kernel import megakernel_fits, trace_rays_kernel
+from .trace_kernel_v1 import v1_fits
+from .tracer import HIT_NONE, trace_rays, trace_rays_bounce
+
+#: Frames traced by each tracer in this process (`render_hdr`'s choice).
+TRACES = {"megakernel": 0, "v1": 0, "general": 0, "bounce": 0}
+
+#: Volume above which `render` windows the state to the camera's visible
+#: volume before tracing (`aic_tpu` render.py:208): 2^24 cubes ≈ 256³.
+AUTO_WINDOW_VOLUME = 1 << 24
 
 
 @dataclass
@@ -38,20 +53,50 @@ class Rendering:
     flaws: tuple[str, ...] = ()
 
 
-def render_hdr(state: SpaceState, camera: Camera):
-    """Trace the frame, sky included; returns (HDR linear light
-    f32[H,W,3], transmittance f32[H,W], unfinished bool) on the state's
-    device."""
+def pick_tracer(state: SpaceState) -> str:
+    """The tracer `render_hdr` sends a state to: "megakernel" where its
+    tables fit, else "v1" where the v1 tables hold it, else "general"."""
+    if megakernel_fits(state):
+        return "megakernel"
+    if v1_fits(state):
+        return "v1"
+    return "general"
+
+
+def render_hdr(state: SpaceState, camera: Camera, include_sky: bool = True, with_stats: bool = False):
+    """Trace the frame on the state's device; returns (HDR linear light
+    f32[H,W,3], transmittance f32[H,W]), and with `with_stats` a stats
+    dict ("unfinished", and the general tracer's "iters" and "walkers"),
+    or None for bounce lighting."""
     opts = camera.options
-    if opts.lighting_display == "bounce":
-        raise NotImplementedError("bounce lighting is not ported yet")
     aa = opts.antialiasing
     origins, directions = camera.pixel_rays(supersample=aa, device=state.device)
-    light, trans, unfinished = trace_rays_kernel(state, origins, directions, opts)
+    stats = None
+    if opts.lighting_display == "bounce":
+        TRACES["bounce"] += 1
+        gen = torch.Generator(device=state.device)
+        gen.manual_seed(0)
+        light, trans = trace_rays_bounce(state, origins, directions, opts, gen, include_sky=include_sky)
+    else:
+        tracer = pick_tracer(state)
+        TRACES[tracer] += 1
+        if tracer == "general":
+            out = trace_rays(state, origins, directions, opts, include_sky=include_sky,
+                             return_stats=with_stats)
+            light, trans = out[0], out[1]
+            stats = out[2] if with_stats else None
+        else:
+            light, trans, unfinished = trace_rays_kernel(
+                state, origins, directions, opts, megakernel=tracer == "megakernel",
+                include_sky=include_sky,
+            )
+            stats = {"unfinished": unfinished}
     if aa:
         light = light.mean(dim=2)  # mean over the 4 sub-pixels (accum.rs mean)
         trans = trans.mean(dim=2)
-    return light, trans, unfinished
+    if with_stats:
+        return light, trans, stats
+    return light, trans
 
 
 def _bilerp(img, ys, xs):
@@ -158,22 +203,129 @@ def finish_frame(light, trans, exposure: float, options) -> torch.Tensor:
     return torch.cat([srgb, alpha[..., None]], dim=-1)
 
 
-def render(state: SpaceState, camera: Camera) -> Rendering:
-    """Render to an sRGB image (host). Imperfections are reported in
-    Rendering.flaws (flaws.rs contract), never silently dropped.
+def auto_exposure_target(light: torch.Tensor) -> float:
+    """Scene-adaptive exposure (character/exposure.rs:67): the target
+    that maps the mean log luminance to middle grey."""
+    mean_log = torch.log2(torch.clamp(luminance(light), min=1e-6)).mean()
+    return float(0.5 / np.exp2(float(mean_log)))
 
-    `GraphicsOptions.debug_pixel_cost` asks `aic_tpu` for its pixel-cost
-    image (render.py:222-223), which is not ported yet (ROADMAP A12):
-    raises NotImplementedError rather than return a shaded frame."""
-    if camera.options.debug_pixel_cost:
-        raise NotImplementedError("the pixel-cost debug render is not ported yet")
+
+def view_window(state: SpaceState, camera: Camera) -> SpaceState:
+    """The state `render` traces: above `AUTO_WINDOW_VOLUME` cubes, the
+    state cut to the camera's visible volume (`window_state`), else the
+    state itself."""
+    n_cubes = int(np.prod(state.contents.shape))
+    if n_cubes <= AUTO_WINDOW_VOLUME:
+        return state
+    eye = np.asarray(camera.eye_to_world[:3, 3], np.float64)
+    lo, hi = visible_light_volume(state, eye, camera.options.view_distance)
+    if int(np.prod(np.asarray(hi) - np.asarray(lo))) < n_cubes:
+        return window_state(state, lo, hi)
+    return state
+
+
+def render(state: SpaceState, camera: Camera, include_sky: bool = True) -> Rendering:
+    """Render to an sRGB image (host). Imperfections are reported in
+    Rendering.flaws (flaws.rs contract), never silently dropped:
+    UNFINISHED where a ray used up its step budget. With
+    `debug_pixel_cost` the image is the pixel-cost heatmap."""
     vp = camera.viewport
     if vp.is_empty():
         return Rendering(vp.width, vp.height, np.zeros((vp.height, vp.width, 4), np.uint8))
-    light, trans, unfinished = render_hdr(state, camera)
-    flaws = ("UNFINISHED",) if unfinished else ()
+    if camera.options.debug_pixel_cost:
+        return render_pixel_cost(state, camera)
+    state = view_window(state, camera)
+    flaws = ()
+    if camera.options.lighting_display == "bounce":
+        light, trans = render_hdr(state, camera, include_sky)
+    else:
+        light, trans, stats = render_hdr(state, camera, include_sky, with_stats=True)
+        if bool(stats["unfinished"]):
+            flaws = ("UNFINISHED",)
     img = finish_frame(light, trans, float(camera.exposure), camera.options)
     return Rendering(vp.width, vp.height, img.cpu().numpy(), flaws)
+
+
+def render_pixel_cost(state: SpaceState, camera: Camera) -> Rendering:
+    """debug_pixel_cost (graphics_options.rs:145): each pixel shaded by
+    its traversal step count in the general tracer, a heatmap (black =
+    cheap, white = expensive, red saturating first)."""
+    origins, directions = camera.pixel_rays(device=state.device)
+    _, _, steps = trace_rays(state, origins, directions, camera.options, count_steps=True)
+    steps = steps.cpu().numpy().astype(np.float32)
+    t = steps / max(float(steps.max()), 1.0)
+    r = np.clip(t * 3.0, 0.0, 1.0)
+    g = np.clip(t * 3.0 - 1.0, 0.0, 1.0)
+    b = np.clip(t * 3.0 - 2.0, 0.0, 1.0)
+    img = np.round(np.stack([r, g, b, np.ones_like(t)], axis=-1) * 255.0).astype(np.uint8)
+    return Rendering(camera.viewport.width, camera.viewport.height, img)
+
+
+def print_space_ascii(state: SpaceState, camera: Camera, chars: str = " .:-=+*#%@") -> str:
+    """ASCII-art rendering, the analog of the reference's `print_space`
+    terminal debugging (raytracer/text.rs)."""
+    light, _ = render_hdr(state, camera)
+    lum = luminance(light).cpu().numpy()
+    lum = lum / max(lum.max(), 1e-6)
+    idx = np.clip((lum * (len(chars) - 1)).round().astype(int), 0, len(chars) - 1)
+    return "\n".join("".join(chars[i] for i in row) for row in idx)
+
+
+def render_depth(state: SpaceState, camera: Camera) -> torch.Tensor:
+    """Depth image f32[H,W] on the state's device: the t-distance (in
+    units of the camera ray's near→far span) of the first surface per
+    pixel, +inf on a miss (the DepthBuf accumulator, accum.rs:254-282),
+    from the general tracer's first-phase hit buffer."""
+    origins, directions = camera.pixel_rays(device=state.device)
+    _, _, hits = trace_rays(state, origins, directions, camera.options, return_hits=True)
+    shape = origins.shape[:-1]
+    t = hits["hit_t"].reshape(shape)
+    return torch.where(hits["hit_kind"].reshape(shape) == HIT_NONE, torch.inf, t)
+
+
+def accumulate_hits(state: SpaceState, camera: Camera, fold, init):
+    """Custom accumulation over the general tracer's per-phase hit
+    buffers, the batch analog of the reference's `Accumulate` trait
+    (accum.rs:108): `fold(acc, phase_hits)` is called once per phase with
+    tensors over all rays (hit_kind, hit_idx, hit_vflat, hit_face,
+    hit_cube, hit_t) and returns the new accumulator."""
+    origins, directions = camera.pixel_rays(device=state.device)
+    _, _, hits = trace_rays(state, origins, directions, camera.options, return_hits=True)
+    acc = init
+    for phase_hits in hits["phases"]:
+        acc = fold(acc, phase_hits)
+    return acc
+
+
+def resample_frame(image, out_h: int, out_w: int, device=None) -> torch.Tensor:
+    """Bilinear frame resample (gpu/src/shaders/resampling.wgsl's
+    scene-copy role): any rendered resolution onto the display's. `image`
+    is a numpy array (moved to `device`, the CPU by default) or a tensor;
+    integer images come back as u8."""
+    if isinstance(image, np.ndarray):
+        integer = np.issubdtype(image.dtype, np.integer)
+        img = torch.as_tensor(image, device=device)
+    else:
+        integer = not torch.is_floating_point(image)
+        img = image
+    out = _stage_sample(img.to(torch.float32), out_h, out_w, 0.0, 0.0)
+    if integer:
+        return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
+    return out
+
+
+def render_scaled(state: SpaceState, camera: Camera, scale: float) -> Rendering:
+    """Render at `scale`× resolution and resample to the camera viewport
+    (camera.rs Viewport::with_scale + the gpu frame-resampling pass):
+    scale < 1 trades sharpness for ray count; scale > 1 supersamples."""
+    vp = camera.viewport
+    rw = max(int(round(vp.width * scale)), 1)
+    rh = max(int(round(vp.height * scale)), 1)
+    small_cam = Camera(camera.options, Viewport(rw, rh), eye_to_world=camera.eye_to_world)
+    small_cam.exposure = camera.exposure
+    r = render(state, small_cam)
+    data = resample_frame(r.data, vp.height, vp.width, device=state.device).cpu().numpy()
+    return Rendering(vp.width, vp.height, data, r.flaws)
 
 
 def save_png(rendering: Rendering, path: str) -> None:

@@ -183,13 +183,13 @@ def build_bitmask_ctx2(state: SpaceState) -> BitmaskCtx2:
     n_regions = rd[0] * rd[1] * rd[2]
     if n_regions > MAX_REGIONS:
         raise ValueError(
-            f"{n_regions} regions > {MAX_REGIONS}: window the state; the XLA "
-            "tracer (ROADMAP A8), which would hold it, is not ported yet"
+            f"{n_regions} regions > {MAX_REGIONS}: window the state, or trace it "
+            "with the general tracer (tracer.trace_rays), as render does"
         )
     if t.padded_voxel_resolution > 2 * REGION:
         raise ValueError(
             f"voxel resolution {t.padded_voxel_resolution} > {2 * REGION} unsupported; "
-            "the XLA tracer (ROADMAP A8), which would hold it, is not ported yet"
+            "the general tracer (tracer.trace_rays) holds it, and render sends it there"
         )
 
     rows = np.empty((n_regions, 128), np.uint32)
@@ -339,13 +339,29 @@ def get_bitmask_ctx2(state: SpaceState) -> BitmaskCtx2:
     return ctx
 
 
+def region_count(state: SpaceState) -> int:
+    """The state's count of 16³ regions, each one row of the kernels'
+    tables."""
+    return int(np.prod([-(-s // REGION) for s in state.contents.shape]))
+
+
 def megakernel_fits(state: SpaceState) -> bool:
     """`aic_tpu` `_megakernel_fits` (pallas_trace.py:1107-1117), kept so
     that both packages send the same states to each kernel: palette ids
     must fit the 15-bit classify code and the tables 10 MiB (a VMEM limit
-    on the TPU; the card's kernel reads them from global memory). States
-    outside them go to the v1 kernel."""
-    if state.tables.visible.shape[0] > 0x8000:
+    on the TPU; the card's kernel reads them from global memory). Where
+    `aic_tpu`'s raises (more than `MAX_REGIONS` regions, voxel resolution
+    above 32, voxel rows past the 14-bit code fields) this says False
+    before building anything. States outside it go to the v1 kernel where
+    `trace_kernel_v1.v1_fits`, else to the general tracer."""
+    t = state.tables
+    if t.visible.shape[0] > 0x8000:
+        return False
+    if region_count(state) > MAX_REGIONS or t.padded_voxel_resolution > 2 * REGION:
+        return False
+    n_ventries = t.vox_rows.shape[0]
+    n_r32 = int((t.resolution[t.voxel_index >= 0] > REGION).sum())
+    if n_ventries >= 1 << 14 or n_ventries + 7 * n_r32 >= 1 << 14:
         return False
     ctx2 = get_bitmask_ctx2(state)
     table_bytes = ctx2.rows.numel() * 4 + 512
@@ -841,11 +857,13 @@ def trace_rays_kernel(
     directions: torch.Tensor,
     options,
     megakernel: bool | None = None,
+    include_sky: bool = True,
 ):
     """Trace rays (`aic_tpu` `trace_rays_pallas`). Returns (light
-    f32[...,3] premultiplied HDR with the sky added, transmittance
-    f32[...], all 0 once the sky is added, unfinished bool): `unfinished`
-    is the Flaws::UNFINISHED analog, set when a ray used up its budget.
+    f32[...,3] premultiplied HDR, transmittance f32[...], unfinished
+    bool): with `include_sky` the sky is added and the transmittance is
+    all 0; `unfinished` is the Flaws::UNFINISHED analog, set when a ray
+    used up its budget.
 
     `megakernel` picks the kernel as `trace_rays_pallas` does: None takes
     the megakernel where `megakernel_fits` says its tables fit and the v1
@@ -872,6 +890,7 @@ def trace_rays_kernel(
     else:
         light_acc, trans_acc, unfinished = trace_phases_v1(state, ctx, rays, st, d_len, shade_fn)
 
-    light = (light_acc + sky_rgb * trans_acc[..., None]).reshape(batch_shape + (3,))
-    trans = torch.zeros_like(trans_acc).reshape(batch_shape)
-    return light, trans, unfinished
+    if include_sky:
+        light_acc = light_acc + sky_rgb * trans_acc[..., None]
+        trans_acc = torch.zeros_like(trans_acc)
+    return light_acc.reshape(batch_shape + (3,)), trans_acc.reshape(batch_shape), unfinished

@@ -66,6 +66,7 @@ from .trace_kernel import (
     _pack_bits_3d,
     _w,
     pack_fields,
+    region_count,
     unpack_fields,
 )
 from .tracer import HIT_ATOM, HIT_NONE as TR_HIT_NONE, HIT_VOXEL
@@ -125,14 +126,14 @@ def build_bitmask_ctx(state: SpaceState) -> BitmaskCtx:
     n_regions = rd[0] * rd[1] * rd[2]
     if n_regions > MAX_REGIONS:
         raise ValueError(
-            f"{n_regions} regions > {MAX_REGIONS}: window the state; the XLA "
-            "tracer (ROADMAP A8), which would hold it, is not ported yet"
+            f"{n_regions} regions > {MAX_REGIONS}: window the state, or trace it "
+            "with the general tracer (tracer.trace_rays), as render does"
         )
     max_r = t.padded_voxel_resolution
     if max_r > REGION:
         raise ValueError(
             f"voxel resolution {max_r} > {REGION} unsupported by the v1 kernel; the "
-            "XLA tracer (ROADMAP A8), which would hold it, is not ported yet"
+            "general tracer (tracer.trace_rays) holds it, and render sends it there"
         )
 
     rows = np.empty((n_regions, 128), np.uint32)
@@ -179,6 +180,13 @@ def build_bitmask_ctx(state: SpaceState) -> BitmaskCtx:
         n_regions=n_regions,
         n_ventries=n_ventries,
     )
+
+
+def v1_fits(state: SpaceState) -> bool:
+    """True when the v1 kernel's tables hold the state: at most
+    `MAX_REGIONS` 16³ regions and voxel resolution at most 16 (what
+    `build_bitmask_ctx` refuses). Decided without building them."""
+    return region_count(state) <= MAX_REGIONS and state.tables.padded_voxel_resolution <= REGION
 
 
 #: id(state.contents) → (weakref to it, ctx): one build per snapshot.

@@ -1,11 +1,26 @@
-"""Ray entry, sky sample and the per-phase hit shader, in plain PyTorch.
+"""The general tracer, bounce lighting, and the pieces every tracer
+shares, in plain PyTorch.
 
-Port of the pieces of `aic_tpu/raytrace/tracer.py` that the megakernel
-path shares with the XLA tracer (there they are XLA code, not Pallas):
+Port of `aic_tpu/raytrace/tracer.py`, which is XLA code, not Pallas:
 `ray_entry_setup` (:334), `_sky_sample` (:1110), `make_phase_shader`
 (:383-475) with smooth-lighting interpolation (:130-325), flat light and
-volumetric transmittance (:478), and fog. The XLA tracer itself
-(`trace_rays`, brick cells, beam pre-pass) is not ported yet.
+volumetric transmittance (:478), and fog, which the kernels' phase loops
+share; `trace_rays` (:499-1108), the general tracer; and
+`trace_rays_bounce` (:1131).
+
+`trace_rays` holds every state: it walks the packed brick cells
+(`SpaceState.cells`, one 4³ brick row gathered per ray and iteration,
+`SUBSTEPS` DDA steps inside it), so it has no region or resolution limit.
+`render_hdr` sends it the states that neither kernel holds (more than
+4096 16³ regions, or voxel resolution above 32 for the megakernel and 16
+for the v1 kernel). A beam pre-pass marches the skip field once per
+8×8-pixel tile to start each ray past the empty space all of its tile
+provably crosses. Each phase walks a list of its walking rays, shrunk
+whenever half of them have stopped; a ray's walk is the same whatever
+list it is in, so the result is `aic_tpu`'s all-ray loop's. The loop
+checks for walkers every `CHECK_EVERY` iterations and counts only the
+iterations that began with a walker, as `aic_tpu`'s `lax.while_loop`
+runs them; an iteration with no walker changes nothing.
 
 Shading follows the reference's `Surface::to_light` (surface.rs:73-200);
 compositing is front-to-back premultiplied alpha. All math is float32.
@@ -15,11 +30,14 @@ gather, this port indexes directly: the selected values are identical.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from ..math import faces, lightpack
 from ..space.state import SpaceState
+from .accel import RES_SHIFT, SKIP_MASK, SKIP_SHIFT, VISIBLE_BIT, VOXEL_BIT, brick_dims
 from .options import (
     LIGHT_BOUNCE,
     LIGHT_COARSE,
@@ -241,6 +259,7 @@ def ray_entry_setup(o: torch.Tensor, d: torch.Tensor, size):
     size_i = _table(size, torch.int32, dev)
     size_f = size_i.to(torch.float32)
     d_len = torch.linalg.vector_norm(d, dim=-1)
+    max_abs_d = torch.clamp(d.abs().amax(-1), min=1e-30)
     safe_d = torch.where(d == 0.0, torch.full_like(d, 1e-30), d)
     inv_d = 1.0 / safe_d
     step = torch.where(d > 0, 1, torch.where(d < 0, -1, 0)).to(torch.int32)
@@ -273,8 +292,10 @@ def ray_entry_setup(o: torch.Tensor, d: torch.Tensor, size):
     cube0 = torch.where(started_inside[..., None], cube0, cube_pre)
     tmax0 = torch.where(started_inside[..., None], tmax0, tmax_pre)
     return dict(
-        inv_d=inv_d, step=step, d_len=d_len, cube0=cube0, tmax0=tmax0,
-        hits_box=hits_box,
+        inv_d=inv_d, step=step, step_pos=step_pos, t_delta_base=inv_d.abs(),
+        d_len=d_len, max_abs_d=max_abs_d, cube0=cube0, tmax0=tmax0,
+        hits_box=hits_box, t_enter=t_enter, t_exit=t_exit,
+        started_inside=started_inside,
     )
 
 
@@ -305,9 +326,12 @@ def make_phase_shader(state: SpaceState, options, o, d, d_len, t_to_view, sky_rg
     """Build the per-phase hit-buffer shader (Surface::to_light + fog +
     front-to-back compositing).
 
-    Returns shade(hits, light_acc, trans_acc) → (light_acc', trans_acc'),
-    where `hits` holds hit_kind, hit_idx, hit_vflat, hit_face, hit_t,
-    hit_next_t and hit_cube."""
+    Returns shade(hits, light_acc, trans_acc, phase_illum=None) →
+    (light_acc', trans_acc'), where `hits` holds hit_kind, hit_idx,
+    hit_vflat, hit_face, hit_t, hit_next_t and hit_cube; `phase_illum`
+    (f32[n, 3]) replaces the stored-light illumination (bounce lighting's
+    hook). Bounce lighting shades Flat here, as past its budget
+    (surface.rs:173-177): `trace_rays_bounce` spends the budget."""
     n_rays = o.shape[0]
     tables = state.tables
     n_space = int(np.prod(state.contents.shape))
@@ -318,8 +342,6 @@ def make_phase_shader(state: SpaceState, options, o, d, d_len, t_to_view, sky_rg
     if not state.light_enabled:
         # LightPhysics::None → unit illumination (updater.rs:580 get()).
         lighting = LIGHT_NONE
-    if lighting == LIGHT_BOUNCE:
-        raise NotImplementedError("bounce lighting is not ported yet")
     transparency = options.transparency
 
     use_interp_rows = (
@@ -332,7 +354,7 @@ def make_phase_shader(state: SpaceState, options, o, d, d_len, t_to_view, sky_rg
     n_pal = tables.palette_rows.shape[0]
     mat_rows = torch.cat([tables.palette_rows, tables.vox_rows.reshape(-1, 8)], 0)
 
-    def shade(hits, light_acc, trans_acc):
+    def shade(hits, light_acc, trans_acc, phase_illum=None):
         has_hit = hits["hit_kind"] != HIT_NONE
         is_vox = hits["hit_kind"] == HIT_VOXEL
         mat_idx = torch.where(is_vox, n_pal + hits["hit_vflat"], hits["hit_idx"])
@@ -356,7 +378,7 @@ def make_phase_shader(state: SpaceState, options, o, d, d_len, t_to_view, sky_rg
 
         if lighting == LIGHT_NONE:
             illum = torch.ones((n_rays, 3), dtype=torch.float32, device=o.device)
-        elif lighting == LIGHT_FLAT:
+        elif lighting in (LIGHT_FLAT, LIGHT_BOUNCE):
             illum = _flat_light(state, hits["hit_cube"], hits["hit_face"])
         elif use_interp_rows:
             illum = _interpolated_light_rows(
@@ -366,6 +388,8 @@ def make_phase_shader(state: SpaceState, options, o, d, d_len, t_to_view, sky_rg
             illum = _interpolated_light(
                 state, hits["hit_cube"], point, hits["hit_face"], lighting
             )
+        if phase_illum is not None:
+            illum = phase_illum
 
         out_rgb = rgba[..., :3] * illum * alpha[..., None] + emission_scaled
         surf_trans = 1.0 - alpha
@@ -383,3 +407,507 @@ def make_phase_shader(state: SpaceState, options, o, d, d_len, t_to_view, sky_rg
         return light_acc2, trans_acc2
 
     return shade
+
+
+# -- the general tracer ---------------------------------------------------------
+
+#: Iterations between two checks for walking rays (each check reads one
+#: count back to the host).
+CHECK_EVERY = 8
+#: DDA steps a ray may take inside the brick row it fetched in one
+#: iteration (`aic_tpu`'s default, which no caller changes).
+SUBSTEPS = 2
+
+
+def _argmin_axis(tmax: torch.Tensor) -> torch.Tensor:
+    """DDA axis choice with the reference's tie-break (raycast.rs:584):
+    prefer Z, then Y, then X on equal t."""
+    x, y, z = tmax[..., 0], tmax[..., 1], tmax[..., 2]
+    return torch.where(x < y, torch.where(x < z, 0, 2), torch.where(y < z, 1, 2))
+
+
+def _onehot3(axis: torch.Tensor) -> torch.Tensor:
+    return (axis[..., None] == torch.arange(3, device=axis.device)).to(torch.int32)
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """a·b + c rounded once to f32, as XLA's CPU code contracts it (the
+    product of two f32 is exact in f64)."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
+def _dot3(a: torch.Tensor, b: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """Sum of products over the last axis of three, in XLA's order and
+    contraction: fma(a2, b2, fma(a1, b1, a0·b0))."""
+    out = _fma(a[..., 2], b[..., 2], _fma(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
+    return out[..., None] if keepdim else out
+
+
+def _norm(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """Euclidean norm over the last axis of three. The square root is
+    taken in f64 and rounded once: the CPU's vectorized f32 `sqrt` is not
+    correctly rounded, XLA's is."""
+    return torch.sqrt(_dot3(x, x, keepdim).double()).to(torch.float32)
+
+
+def _tile_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over axes 1 and 3 of [ht, th, wt, th, 3], the terms added one
+    at a time in row-major order, as XLA's CPU reduction adds them: a
+    beam's start can sit on a knife edge, so its sums follow `aic_tpu`'s."""
+    ht, th, wt, tw, c = x.shape
+    terms = x.permute(1, 3, 0, 2, 4).reshape(th * tw, ht, wt, c)
+    acc = terms[0]
+    for k in range(1, th * tw):
+        acc = acc + terms[k]
+    return acc / float(th * tw)
+
+
+def _pow2(log2: torch.Tensor) -> torch.Tensor:
+    return torch.bitwise_left_shift(torch.ones_like(log2), log2)
+
+
+def _clamp_cube(cube: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """clip(cube, 0, hi - 1) with a per-ray or per-axis upper bound."""
+    return torch.minimum(torch.clamp(cube, min=0), hi - 1)
+
+
+def trace_rays(
+    state: SpaceState,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    options,
+    include_sky: bool = True,
+    max_steps: int | None = None,
+    phases: int = 4,
+    return_stats: bool = False,
+    beam_tile: int = 8,
+    return_hits: bool = False,
+    count_steps: bool = False,
+    illum_override: torch.Tensor | None = None,
+):
+    """Trace rays (world coords, any batch shape (..., 3), on the state's
+    device) through the packed brick cells (`aic_tpu` `trace_rays`).
+    Returns (light f32[...,3] premultiplied HDR, transmittance f32[...]);
+    with `return_stats` appends {"iters", "walkers": i64[phases] loop
+    iterations and walking rays per phase, "unfinished": bool tensor}
+    (the RaytraceInfo and Flaws::UNFINISHED analogs); with `return_hits`
+    the first phase's hit buffer, its "phases" entry the list of every
+    phase's; with `count_steps` the DDA steps per ray (debug_pixel_cost).
+    `illum_override` (f32[n, 3]) replaces the first phase's stored-light
+    illumination (`trace_rays_bounce`'s hook). `compact=True`, rejected
+    in `aic_tpu`, is not ported."""
+    dev = state.device
+    batch_shape = tuple(origins.shape[:-1])
+    lower = torch.as_tensor(state.lower, dtype=torch.float32, device=dev)
+    o = origins.reshape(-1, 3).to(device=dev, dtype=torch.float32) - lower
+    d = directions.reshape(-1, 3).to(device=dev, dtype=torch.float32)
+    if illum_override is not None:
+        illum_override = illum_override.reshape(-1, 3)
+    n_rays = o.shape[0]
+    shape = tuple(state.contents.shape)
+    size_i = torch.as_tensor(shape, dtype=torch.int32, device=dev)
+    size_f = size_i.to(torch.float32)
+    n_space = int(np.prod(shape))
+    max_r = state.tables.padded_voxel_resolution
+    vox_r3 = max_r**3
+    if max_steps is None:
+        max_steps = int(2 * (sum(shape) + 8 * max_r))
+
+    entry = ray_entry_setup(o, d, shape)
+    d_len, max_abs_d = entry["d_len"], entry["max_abs_d"]
+    inv_d, step, step_pos = entry["inv_d"], entry["step"], entry["step_pos"]
+    cube0, tmax0 = entry["cube0"], entry["tmax0"]
+    hits_box, t_enter, t_exit = entry["hits_box"], entry["t_enter"], entry["t_exit"]
+    t_to_view = d_len / float(options.view_distance)
+    sky_rgb = _sky_sample(state, d)
+
+    cells_rows = state.cells
+    total_bricks = cells_rows.shape[0]
+    sbd = brick_dims(shape)
+    vbd = brick_dims((max_r, max_r, max_r))
+    n_sb = int(np.prod(sbd))
+    n_vb = int(np.prod(vbd))
+
+    def brick_key(cube, inner, ventry):
+        """Global brick-row index of `cube` in its current grid (the outer
+        space's, or a voxel entry's)."""
+        b = cube >> 2
+        outer = (b[..., 0] * sbd[1] + b[..., 1]) * sbd[2] + b[..., 2]
+        innerk = n_sb + ventry * n_vb + (b[..., 0] * vbd[1] + b[..., 1]) * vbd[2] + b[..., 2]
+        return torch.where(inner, innerk, outer)
+
+    def fetch_row(bkey):
+        return cells_rows[torch.clamp(bkey, 0, total_bricks - 1).long()]
+
+    def cell_in_row(row, cube):
+        local = ((cube[..., 0] & 3) << 4) | ((cube[..., 1] & 3) << 2) | (cube[..., 2] & 3)
+        return row.gather(-1, local.long()[..., None])[..., 0]
+
+    # ---- beam pre-pass: per-tile conservative start distance ------------
+    # Cone-march the skip field for each beam_tile² pixel tile: the whole
+    # tile's rays provably hit nothing before the beam's stop distance,
+    # so their DDA starts there.
+    use_beams = (
+        beam_tile > 0
+        and len(batch_shape) == 2
+        and batch_shape[0] % beam_tile == 0
+        and batch_shape[1] % beam_tile == 0
+    )
+
+    def beam_start(th):
+        ht, wt = batch_shape[0] // th, batch_shape[1] // th
+        o_t = o.reshape(ht, th, wt, th, 3)
+        d_t = d.reshape(ht, th, wt, th, 3)
+        dn = d_t / _norm(d_t, keepdim=True)
+        u = _tile_mean(dn)
+        u = u / _norm(u, keepdim=True)  # [ht,wt,3]
+        o_c = _tile_mean(o_t)
+        ub, ocb = u[:, None, :, None, :], o_c[:, None, :, None, :]
+        # Cone: radius(s) = r0 + s·spread bounds every tile ray's distance
+        # from the centre ray's point at equal projection s.
+        spread = 1.15 * _norm(dn - ub).amax(dim=(1, 3))
+        r0 = _norm(o_t - ocb).amax(dim=(1, 3))
+        # Per-member box entry as projections onto the centre ray.
+        proj = _dot3(d_t, ub)  # [ht,th,wt,th]
+        ooff = _dot3(o_t - ocb, ub)
+        hits_t = hits_box.reshape(ht, th, wt, th) & (proj > 1e-9)
+        projc = torch.clamp(proj, min=1e-9)
+        inf = torch.full_like(proj, INF)
+        s_first = torch.where(hits_t, _fma(t_enter.reshape(ht, th, wt, th), projc, ooff), inf).amin(dim=(1, 3))
+        s_last_exit = torch.where(hits_t, _fma(t_exit.reshape(ht, th, wt, th), projc, ooff), -inf).amax(dim=(1, 3))
+
+        max_abs_u = torch.clamp(u.abs().amax(-1), min=1e-30)
+        missed = ~torch.isfinite(s_first)  # no member ray meets the box
+        done = missed
+        t = torch.where(done, 0.0, torch.clamp(s_first, min=0.0))
+        no_inner = torch.zeros(t.shape, dtype=torch.bool, device=dev)
+        zero_v = torch.zeros(t.shape, dtype=torch.int32, device=dev)
+        # Up to 32 marching steps; once every tile is done a step changes
+        # nothing, so all 32 run without a check.
+        for _ in range(32):
+            p = o_c + u * t[..., None]
+            # L∞ distance from p to the volume box.
+            m = torch.clamp(torch.maximum(-p, p - size_f), min=0.0).amax(-1)
+            cube = _clamp_cube(torch.floor(p).to(torch.int32), size_i)
+            cell = cell_in_row(fetch_row(brick_key(cube, no_inner, zero_v)), cube)
+            vis = (cell & VISIBLE_BIT) != 0
+            skip = (cell >> SKIP_SHIFT) & SKIP_MASK
+            dist = torch.where(vis, 0, skip).to(torch.float32)
+            # Safe empty radius around p: everything within m is outside
+            # the box, or no visible cube within dist − m − 2.
+            safe = torch.maximum(m, dist - m - 2.0)
+            r = r0 + t * spread
+            adv = (safe - r) * 0.99 / (max_abs_u + spread)
+            good = ~done & (adv > 1e-3) & (t < s_last_exit)
+            t = torch.where(good, t + adv, t)
+            done = done | ~good
+        # Ray-parameter bound: τ ≤ (t − (o_r−o_c)·u) / (d_r·u).
+        tau = (t[:, None, :, None] - ooff) / projc
+        tau = torch.where((proj > 1e-9) & ~missed[:, None, :, None], torch.clamp(tau, min=0.0), 0.0)
+        return tau.reshape(n_rays)
+
+    if use_beams:
+        tau_beam = beam_start(beam_tile)
+        # Skip ahead only past at least half a cube of proven empty space:
+        # a stalled beam keeps the boundary-shading entry init.
+        beyond = tau_beam > t_enter + 0.51 / max_abs_d
+        t_eff = torch.maximum(t_enter, tau_beam)
+        p_b = _fma(d, t_eff[..., None] + 1e-5, o)
+        cube_b = _clamp_cube(torch.floor(p_b).to(torch.int32), size_i)
+        tmax_b = ((cube_b + step_pos).to(torch.float32) - o) * inv_d
+        tmax_b = torch.where(step == 0, INF, tmax_b)
+        cube0 = torch.where(beyond[..., None], cube_b, cube0)
+        tmax0 = torch.where(beyond[..., None], tmax_b, tmax0)
+        # Beam start beyond the volume exit: the ray hits nothing.
+        hits_box = hits_box & ~(beyond & (t_eff >= t_exit))
+
+    # ---- origin inside a voxel-block cube: descend immediately ----------
+    # (recursive_raycast applies to the origin cube too, raycast.rs:458;
+    # the origin voxel itself is not shaded.)
+    false1 = torch.zeros(n_rays, dtype=torch.bool, device=dev)
+    zero1 = torch.zeros(n_rays, dtype=torch.int32, device=dev)
+    cell0 = cell_in_row(fetch_row(brick_key(cube0, false1, zero1)), cube0)
+    isvox0 = (
+        entry["started_inside"] & hits_box
+        & ((cell0 & VOXEL_BIT) != 0) & ((cell0 & VISIBLE_BIT) != 0)
+    )
+    res0_i = _pow2((cell0 >> RES_SHIFT) & 7)
+    res0_f = res0_i.to(torch.float32)
+    io0 = (o - cube0.to(torch.float32)) * res0_f[..., None]
+    icube0 = torch.minimum(torch.clamp(torch.floor(io0).to(torch.int32), min=0), res0_i[..., None] - 1)
+    itmax0 = ((icube0 + step_pos).to(torch.float32) - io0) * inv_d / res0_f[..., None]
+    itmax0 = torch.where(step == 0, INF, itmax0)
+    iv = isvox0[..., None]
+
+    ctx0 = dict(
+        o=o, d=d, inv_d=inv_d, step=step, step_pos=step_pos,
+        t_delta_base=entry["t_delta_base"], d_len=d_len, max_abs_d=max_abs_d,
+    )
+    zi, zf = torch.zeros_like(zero1), torch.zeros(n_rays, dtype=torch.float32, device=dev)
+    st = dict(
+        cube=torch.where(iv, icube0, cube0),
+        tmax=torch.where(iv, itmax0, tmax0),
+        mode=isvox0.to(torch.int32),
+        res_f=torch.where(isvox0, res0_f, 1.0),
+        ventry=torch.where(isvox0, cell0 & 0xFFFF, 0),
+        res_i=torch.where(isvox0, res0_i, 1),
+        saved_cube=cube0,
+        saved_tmax=tmax0,
+        block_cube=cube0,
+        walking=hits_box,
+        hit_kind=zi, hit_idx=zi, hit_vflat=zi, hit_face=zi,
+        hit_t=zf, hit_next_t=zf, hit_cube=torch.zeros_like(cube0),
+    )
+    if count_steps:
+        st["steps"] = zi
+
+    def sub_step(st, ctx, row, bkey):
+        o, d, inv_d = ctx["o"], ctx["d"], ctx["inv_d"]
+        step, step_pos = ctx["step"], ctx["step_pos"]
+        walking = st["walking"]
+        inner = st["mode"] == 1
+
+        axis = _argmin_axis(st["tmax"])
+        t_hit = st["tmax"].amin(-1)
+        step_axis = step.gather(-1, axis[..., None])[..., 0]
+        face = torch.where(step_axis > 0, axis, axis + 3)
+        onehot = _onehot3(axis)
+        new_cube = st["cube"] + onehot * step
+        # Inner t_delta = base / R (direction scaled by R).
+        tdelta = ctx["t_delta_base"] / st["res_f"][..., None]
+        new_tmax = st["tmax"] + onehot.to(torch.float32) * tdelta
+
+        # A ray acts this sub-step only if the cell it enters lies in the
+        # fetched brick row; otherwise it stalls until the next fetch.
+        act = walking & (brick_key(new_cube, inner, st["ventry"]) == bkey)
+        grid_hi = torch.where(inner[..., None], st["res_i"][..., None], size_i)
+        inside = ((new_cube >= 0) & (new_cube < grid_hi)).all(-1)
+        exit_outer = act & ~inner & ~inside
+        exit_inner = act & inner & ~inside
+
+        cell = cell_in_row(row, new_cube)
+        oc = _clamp_cube(new_cube, grid_hi)
+        # Unbricked voxel-table index for shading (vox_rows layout).
+        vflat = st["ventry"] * vox_r3 + (oc[..., 0] * max_r + oc[..., 1]) * max_r + oc[..., 2]
+
+        visible = (cell & VISIBLE_BIT) != 0
+        is_voxel = (cell & VOXEL_BIT) != 0
+        skip = (cell >> SKIP_SHIFT) & SKIP_MASK
+        pal_idx = cell & 0xFFFF
+        res_log2 = (cell >> RES_SHIFT) & 7
+
+        stepping = act & inside
+        hit_atom = stepping & visible & ~is_voxel & ~inner
+        hit_vox = stepping & visible & inner
+        enter_block = stepping & visible & is_voxel & ~inner
+        can_jump = stepping & ~visible & (skip >= 2)
+
+        # Voxel-block entry: push the outer registers, start the inner DDA
+        # one virtual voxel early along the entry axis. A block cell's
+        # payload is its voxel-table row.
+        blk_res = _pow2(res_log2)
+        blk_res_f = blk_res.to(torch.float32)
+        io = (o - new_cube.to(torch.float32)) * blk_res_f[..., None]
+        entry_p_inner = io + d * blk_res_f[..., None] * t_hit[..., None]
+        nudge = d * (1e-4 / ctx["d_len"])[..., None]
+        icube_entry = torch.minimum(
+            torch.clamp(torch.floor(entry_p_inner + nudge).to(torch.int32), min=0), blk_res[..., None] - 1
+        )
+        itmax = ((icube_entry + step_pos).to(torch.float32) - io) * inv_d / blk_res_f[..., None]
+        itmax = torch.where(step == 0, INF, itmax)
+        icube_pre = icube_entry - onehot * step
+        itmax_pre = torch.where(onehot == 1, t_hit[..., None], itmax)
+
+        # Skip jump: advance (skip-1)·0.99 cubes in the current grid's L∞
+        # metric and re-derive the registers from the true origin.
+        grid_scale = torch.where(inner, st["res_f"], 1.0)
+        jump_dt = (skip.to(torch.float32) - 1.0) * 0.99 / (ctx["max_abs_d"] * grid_scale)
+        t_jump = t_hit + jump_dt
+        base = torch.where(
+            inner[..., None], (o - st["block_cube"].to(torch.float32)) * grid_scale[..., None], o
+        )
+        p_jump = base + d * (grid_scale * t_jump)[..., None]
+        jcube = _clamp_cube(torch.floor(p_jump).to(torch.int32), grid_hi)
+        jtmax = ((jcube + step_pos).to(torch.float32) - base) * inv_d / grid_scale[..., None]
+        jtmax = torch.where(step == 0, INF, jtmax)
+
+        # Commit by case (stalled rays keep their state).
+        eb, ei, cj, w = enter_block[..., None], exit_inner[..., None], can_jump[..., None], act[..., None]
+        cube = torch.where(eb, icube_pre, torch.where(
+            ei, st["saved_cube"], torch.where(cj, jcube, torch.where(w, new_cube, st["cube"]))))
+        tmax = torch.where(eb, itmax_pre, torch.where(
+            ei, st["saved_tmax"], torch.where(cj, jtmax, torch.where(w, new_tmax, st["tmax"]))))
+        got_hit = hit_atom | hit_vox
+        return dict(
+            st,
+            cube=cube,
+            tmax=tmax,
+            mode=torch.where(enter_block, 1, torch.where(exit_inner, 0, st["mode"])),
+            res_f=torch.where(enter_block, blk_res_f, torch.where(exit_inner, 1.0, st["res_f"])),
+            res_i=torch.where(enter_block, blk_res, torch.where(exit_inner, 1, st["res_i"])),
+            ventry=torch.where(enter_block, pal_idx, st["ventry"]),
+            saved_cube=torch.where(eb, new_cube, st["saved_cube"]),
+            saved_tmax=torch.where(eb, new_tmax, st["saved_tmax"]),
+            block_cube=torch.where(eb, new_cube, st["block_cube"]),
+            walking=walking & ~got_hit & ~exit_outer,
+            hit_kind=torch.where(hit_atom, HIT_ATOM, torch.where(hit_vox, HIT_VOXEL, st["hit_kind"])),
+            hit_idx=torch.where(got_hit, pal_idx, st["hit_idx"]),
+            hit_vflat=torch.where(hit_vox, vflat, st["hit_vflat"]),
+            hit_face=torch.where(got_hit, face, st["hit_face"]).to(torch.int32),
+            hit_t=torch.where(got_hit, t_hit, st["hit_t"]),
+            hit_next_t=torch.where(got_hit, new_tmax.amin(-1), st["hit_next_t"]),
+            hit_cube=torch.where(
+                got_hit[..., None], torch.where(inner[..., None], st["block_cube"], new_cube), st["hit_cube"]
+            ),
+        )
+
+    def traversal_body(st, ctx):
+        """One iteration: gather the brick row each ray is about to enter,
+        then take up to `SUBSTEPS` DDA steps inside it."""
+        probe_cube = st["cube"] + _onehot3(_argmin_axis(st["tmax"])) * ctx["step"]
+        bkey = brick_key(probe_cube, st["mode"] == 1, st["ventry"])
+        row = fetch_row(bkey)
+        for _ in range(SUBSTEPS):
+            st = sub_step(st, ctx, row, bkey)
+        if "steps" in st:
+            st = dict(st, steps=st["steps"] + st["walking"].to(torch.int32) * SUBSTEPS)
+        return st
+
+    def scatter(full, idx, sub):
+        return {k: v.index_copy(0, idx, sub[k]) for k, v in full.items()}
+
+    def run_loop(st):
+        """Walk the phase's walking rays for up to `max_steps` iterations.
+        Returns the state and the iterations that began with a walker."""
+        iters = torch.zeros((), dtype=torch.int64, device=dev)
+        idx = torch.nonzero(st["walking"]).squeeze(1)
+        if idx.numel() == 0 or max_steps <= 0:
+            return st, iters
+        sub = {k: v[idx] for k, v in st.items()}
+        sctx = {k: v[idx] for k, v in ctx0.items()}
+        done = 0
+        while done < max_steps:
+            for _ in range(min(CHECK_EVERY, max_steps - done)):
+                iters += sub["walking"].any()
+                sub = traversal_body(sub, sctx)
+            done += min(CHECK_EVERY, max_steps - done)
+            n_walk = int(sub["walking"].sum())
+            if n_walk == 0:
+                break
+            if 2 * n_walk <= idx.numel() and done < max_steps:
+                st = scatter(st, idx, sub)
+                keep = torch.nonzero(sub["walking"]).squeeze(1)
+                idx = idx[keep]
+                sub = {k: v[keep] for k, v in sub.items()}
+                sctx = {k: v[keep] for k, v in sctx.items()}
+        return scatter(st, idx, sub), iters
+
+    shade_fn = make_phase_shader(state, options, o, d, d_len, t_to_view, sky_rgb)
+    light_acc = torch.zeros((n_rays, 3), dtype=torch.float32, device=dev)
+    trans_acc = torch.ones(n_rays, dtype=torch.float32, device=dev)
+    iters_used, walkers, all_hits = [], [], []
+    unfinished = torch.zeros((), dtype=torch.bool, device=dev)
+    for phase in range(phases):
+        if return_stats:
+            walkers.append(st["walking"].sum())
+        st, iters = run_loop(st)
+        iters_used.append(iters)
+        has_hit = st["hit_kind"] != HIT_NONE
+        if return_stats:
+            # Rays still walking when the loop ran out of fuel.
+            unfinished = unfinished | st["walking"].any()
+        if return_hits:
+            all_hits.append({
+                k: st[k] for k in ("hit_kind", "hit_face", "hit_t", "hit_cube", "hit_idx", "hit_vflat")
+            })
+        if bool(has_hit.any()):
+            light_acc, trans_acc = shade_fn(
+                st, light_acc, trans_acc, illum_override if phase == 0 else None
+            )
+        # Resume rays that still transmit (ColorBuf::opaque cutoff).
+        resume = has_hit & (trans_acc >= 1.0 / 256.0)
+        st = dict(st, walking=resume, hit_kind=torch.zeros_like(st["hit_kind"]))
+
+    if include_sky:
+        light_acc = light_acc + sky_rgb * trans_acc[..., None]
+        trans_acc = torch.zeros_like(trans_acc)
+
+    out = (light_acc.reshape(batch_shape + (3,)), trans_acc.reshape(batch_shape))
+    if return_stats:
+        out = out + (dict(
+            iters=torch.stack(iters_used), walkers=torch.stack(walkers), unfinished=unfinished,
+        ),)
+    if return_hits:
+        first = dict(all_hits[0])
+        first["phases"] = all_hits
+        out = out + (first,)
+    if count_steps:
+        out = out + (st["steps"].reshape(batch_shape),)
+    return out
+
+
+# -- bounce lighting --------------------------------------------------------------
+
+
+def bounce_from_samples(
+    state: SpaceState,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    options,
+    normal_samples: torch.Tensor,
+    include_sky: bool = True,
+    phases: int = 4,
+):
+    """`trace_rays_bounce` on given standard-normal draws f32[samples, n, 3]
+    (n = the number of rays): sample i's secondary directions are the hit
+    face's normal plus draw i, normalized to the unit sphere."""
+    batch_shape = tuple(origins.shape[:-1])
+    dev = state.device
+    o = origins.reshape(-1, 3).to(device=dev, dtype=torch.float32)
+    d = directions.reshape(-1, 3).to(device=dev, dtype=torch.float32)
+
+    _, _, hits = trace_rays(
+        state, o, d, options, include_sky=include_sky, phases=1, return_hits=True, beam_tile=0
+    )
+    has_hit = hits["hit_kind"] != HIT_NONE
+    n = _table(faces.FACE_NORMALS, torch.float32, dev)[torch.clamp(hits["hit_face"], 0, 5).long()]
+    point = o + d * hits["hit_t"][..., None] + n * 1e-4
+
+    flat_opts = dataclasses.replace(options, lighting_display=LIGHT_FLAT)
+    illum = torch.zeros_like(point)
+    for sph in normal_samples.to(device=dev, dtype=torch.float32):
+        sph = sph / torch.clamp(_norm(sph, keepdim=True), min=1e-9)
+        d2 = n + sph
+        # Degenerate direction (sample ≈ -normal): fall back to the normal.
+        d2 = torch.where(_norm(d2, keepdim=True) < 1e-3, n, d2)
+        li, _ = trace_rays(state, point, d2, flat_opts, include_sky=True, phases=2, beam_tile=0)
+        illum = illum + li
+    illum = illum / float(normal_samples.shape[0])
+
+    light, trans = trace_rays(
+        state, o, d, options, include_sky=include_sky, phases=phases,
+        illum_override=torch.where(has_hit[..., None], illum, 0.0), beam_tile=0,
+    )
+    return light.reshape(batch_shape + (3,)), trans.reshape(batch_shape)
+
+
+def trace_rays_bounce(
+    state: SpaceState,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    options,
+    generator: torch.Generator,
+    include_sky: bool = True,
+    phases: int = 4,
+):
+    """LightingOption::Bounce (surface.rs:113-163; `aic_tpu`
+    `trace_rays_bounce`): primary hits are illuminated by
+    `options.bounce_samples` Lambertian secondary rays (face normal +
+    uniform unit-sphere sample, origin nudged off the surface), each
+    traced with stored-light Flat shading; later transparency phases
+    shade Flat. `generator` (on the state's device) draws the samples:
+    bounce is pseudo-random by design. Returns (light, trans)."""
+    samples = max(int(options.bounce_samples), 1)
+    n = int(np.prod(origins.shape[:-1]))
+    draws = torch.randn((samples, n, 3), generator=generator, device=state.device)
+    return bounce_from_samples(state, origins, directions, options, draws, include_sky, phases)

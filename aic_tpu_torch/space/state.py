@@ -18,7 +18,8 @@ packages.
 The device lookups and the device half of a transaction commit
 (`in_bounds_mask`, `lookup_contents`, `lookup_light`,
 `scatter_set_cubes`) are `aic_tpu/space/state.py:113-190` on tensors on
-the state's device.
+the state's device; `visible_light_volume` and `window_state` (:193-267)
+cut a large state down to the camera's view before it is rendered.
 """
 
 from __future__ import annotations
@@ -163,7 +164,6 @@ def scatter_set_cubes(state: SpaceState, idx: torch.Tensor, new_indices: torch.T
     (255), and the packed cells (skip field included) are rebuilt from
     the new contents on the state's device."""
     from ..math.faces import FACE7_NORMALS
-    from ..raytrace.accel import brick_dims, build_trace_cells, cell_payload, to_bricks
 
     dev = state.contents.device
     idx = idx.to(device=dev, dtype=torch.int64)
@@ -180,13 +180,20 @@ def scatter_set_cubes(state: SpaceState, idx: torch.Tensor, new_indices: torch.T
     dirty = torch.cat([state.light_dirty.reshape(-1), state.light_dirty.new_zeros(1)])
     dirty[torch.where(in_bounds_mask(state, nb), _flat_index(shape, nb), n)] = 255
     dirty = dirty[:n].reshape(shape)
+    return dataclasses.replace(state, contents=contents, light_dirty=dirty, cells=_cells_for(state, contents))
+
+
+def _cells_for(state: SpaceState, contents: torch.Tensor) -> torch.Tensor:
+    """Packed cells for `contents` under the state's palette, on its
+    device: the space bricks built anew (skip field included), the voxel
+    entries' brick rows of `state.cells` kept."""
+    from ..raytrace.accel import brick_dims, build_trace_cells, cell_payload, to_bricks
 
     t = state.tables
     space_cells = build_trace_cells(contents, t.visible, t.voxel_index >= 0, t.res_log2,
                                     payload=cell_payload(t.voxel_index))
-    n_sb = int(np.prod(brick_dims(shape)))
-    cells = torch.cat([to_bricks(space_cells), state.cells[n_sb:]], dim=0)
-    return dataclasses.replace(state, contents=contents, light_dirty=dirty, cells=cells)
+    n_sb = int(np.prod(brick_dims(state.contents.shape)))
+    return torch.cat([to_bricks(space_cells), state.cells[n_sb:]], dim=0)
 
 
 def state_from_numpy(
@@ -228,3 +235,50 @@ def state_to_numpy(state: SpaceState) -> tuple[dict[str, np.ndarray], dict]:
         light_enabled=state.light_enabled,
     )
     return fields, static
+
+
+def visible_light_volume(state: SpaceState, view_position, view_distance: float):
+    """World-coordinate window for which rendering needs data: the view
+    sphere's bounding box (plus a chunk-diagonal margin) intersected with
+    the space bounds (gpu/src/light_texture.rs:39 visible_light_volume).
+
+    Returns (lower, upper) world coords, always a non-empty box clipped
+    to the state's bounds."""
+    margin = 16.0 * 1.75  # CAMERA_MARGIN_RADIUS (light_texture.rs:34)
+    p = np.asarray(view_position, np.float64)
+    r = float(view_distance) + margin
+    lo = np.floor(p - r).astype(np.int64)
+    hi = np.ceil(p + r).astype(np.int64)
+    s_lo = np.asarray(state.lower, np.int64)
+    s_hi = s_lo + np.asarray(state.contents.shape, np.int64)
+    lo = np.clip(lo, s_lo, s_hi - 1)
+    hi = np.clip(hi, lo + 1, s_hi)
+    return tuple(int(v) for v in lo), tuple(int(v) for v in hi)
+
+
+def window_state(state: SpaceState, lower, upper) -> SpaceState:
+    """The state cut to the world-coordinate window [lower, upper), on its
+    device (the big-world analog of the reference's windowed light
+    texture, gpu/src/light_texture.rs:139-239). Contents and light are
+    sliced; the packed cells' space-brick section is rebuilt for the
+    window by `build_trace_cells` on tensors (the skip field must not see
+    visibility outside it), and the voxel entries' brick rows are shared
+    unchanged. Rays that leave the window see the sky."""
+    lo_w = np.asarray(lower, np.int64)
+    hi_w = np.asarray(upper, np.int64)
+    s_lo = np.asarray(state.lower, np.int64)
+    rel_lo, rel_hi = lo_w - s_lo, hi_w - s_lo
+    size = np.asarray(state.contents.shape, np.int64)
+    if (rel_lo < 0).any() or (rel_hi > size).any() or (rel_hi <= rel_lo).any():
+        raise ValueError(f"window {lower}..{upper} outside state bounds")
+    sl = tuple(slice(int(a), int(b)) for a, b in zip(rel_lo, rel_hi))
+
+    contents = state.contents[sl].contiguous()
+    return dataclasses.replace(
+        state,
+        contents=contents,
+        light=state.light[sl].contiguous(),
+        light_dirty=state.light_dirty[sl].contiguous(),
+        cells=_cells_for(state, contents),
+        lower=tuple(int(v) for v in lo_w),
+    )

@@ -83,11 +83,25 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    busiest timed batch against the plain walk, the phases' spans, 60
    more steps with each listed launch timed by CUDA events, and a
    palette-growing commit.
-8. the kernels line (JSON; K1's row from demo-city's frame, its phases'
+8. render  — the render API and the general tracer, the counters set to
+   0 before and read after: the atrium at 1920x1080, the general tracer
+   (`tracer.trace_rays`) against K1's frame on the same rays (pixels over
+   2e-3 at most 0.01%), then `render` (K1), the pixel-cost and depth
+   images, `render_scaled(0.5)`, a bounce frame and `RtRenderer.draw`
+   (a UI space, the atrium, a cursor, info text); "Smallest" (R128,
+   built standalone: neither kernel holds it) and plaza(1280) (6,400
+   regions: more than the kernels' 4,096) through the general tracer;
+   plaza(1536) (over `render.AUTO_WINDOW_VOLUME`) relit by K2, windowed
+   to the view and traced by K1 or K3, held against the whole state's
+   general-tracer frame over the near view. Each render asserts the
+   tracer that `render.pick_tracer` names (`render.TRACES`) and prints
+   its host-clock time after a synchronization beside the card's name
+   and power limit; the general tracer's iterations per phase.
+9. the kernels line (JSON; K1's row from demo-city's frame, its phases'
    launches summed; K2's listed mode as `relight_batch`, from the atrium
    step's batch that walked the most rows; launches summed over every
-   main path, demo-city's included), the `nvidia-smi` line, and the last
-   line {"ok": true, "device": {...}}.
+   main path, demo-city's and the render phase's included), the
+   `nvidia-smi` line, and the last line {"ok": true, "device": {...}}.
 
 Needs CUDA and the `aic_tpu_torch` package beside this file; imports no
 JAX.
@@ -95,6 +109,7 @@ JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -1782,6 +1797,264 @@ def city_world(dev, opts, reset_counts, read_counts) -> dict:
     return dict(counts=counts, relight=relight, trace=trace, k1=k1, batch=batch)
 
 
+# -- the render API and the general tracer -------------------------------------
+
+#: plaza sizes of the render phase: 1280 is 13.1 M cubes and 6,400 16³
+#: regions (over the kernels' 4,096, under the window volume: the general
+#: tracer traces it whole); 1536 is 18.9 M cubes (over the window volume:
+#: `render` cuts it to the view, and a kernel traces the window).
+PLAZA_GENERAL = 1280
+PLAZA_WINDOWED = 1536
+#: The windowed frame against the whole state's frame over the near view
+#: (tests/test_window.py:44-67): the central crop's median difference 0,
+#: at most 6% of its pixels more than 8 apart in a channel.
+WINDOW_FAR = 8
+WINDOW_MAX_SHARE = 0.06
+#: A general-tracer frame slower than this is also traced at half size.
+GENERAL_SLOW_S = 60.0
+#: The render phase's frame size.
+RENDER_W, RENDER_H = 1920, 1080
+
+
+def synced(fn):
+    """(fn(), host-clock seconds between two synchronizations)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def traced_by(fn, want: str, label: str):
+    """fn() and its host-clock seconds, synchronized; fails unless it
+    traced exactly one frame, through `want` (`render.TRACES`)."""
+    import importlib
+
+    R = importlib.import_module("aic_tpu_torch.raytrace.render")
+    before = dict(R.TRACES)
+    out, s = synced(fn)
+    ran = {k: R.TRACES[k] - before[k] for k in before if R.TRACES[k] != before[k]}
+    if ran != {want: 1}:
+        fail(f"render {label}: traced by {ran}, not once by {want}")
+    return out, s
+
+
+def relit(space, dev, label):
+    """Snapshot on the card and `evaluate_light_dense` (K2): (state,
+    passes, seconds); a fall-back to w = 1 is printed, not an error."""
+    import torch
+    from aic_tpu_torch.light import dense
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", dense.OverrelaxFellBack)
+        t0 = time.perf_counter()
+        state, passes = dense.evaluate_light_dense(space.snapshot(device=dev))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    for w in caught:
+        if not issubclass(w.category, dense.OverrelaxFellBack):
+            warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
+    if any(issubclass(w.category, dense.OverrelaxFellBack) for w in caught):
+        phase("render", f"{label}: the over-relaxed relight fell back to plain Jacobi")
+    return state, passes, secs
+
+
+def check_image(img, shape, label, alpha_min=0.5):
+    if img.shape != shape:
+        fail(f"render {label}: image shape {img.shape}, not {shape}")
+    if img[..., :3].reshape(-1, 3).std(0).max() == 0:
+        fail(f"render {label}: the image is constant")
+    coverage = float((img[..., 3] > 0).mean())
+    if coverage < alpha_min:
+        fail(f"render {label}: alpha coverage {coverage:.3f} < {alpha_min}")
+
+
+def render_world(dev, opts, smi, reset_counts, read_counts) -> dict:
+    """The render API and the general tracer on five scenes, with the
+    launch counters set to 0 before and read after: the atrium at
+    1920x1080 (the general tracer against K1's frame on the same rays;
+    pixel cost, depth, a half-scale render, a bounce frame and
+    `RtRenderer.draw` with a UI space, a cursor and info text), the
+    "Smallest" exhibit (R128, past both kernels), plaza(1280) (past the
+    kernels' 4,096 regions) and plaza(1536) (windowed to the view, then a
+    kernel; held against the whole state's general-tracer frame). Every
+    render asserts the tracer that `render.pick_tracer` names."""
+    import importlib
+
+    import torch
+    from aic_tpu_torch.content import atrium, plaza
+    from aic_tpu_torch.content.exhibits import smallest_exhibit
+    from aic_tpu_torch.main import default_camera
+    from aic_tpu_torch.raytrace import Camera, Viewport, trace_rays
+    from aic_tpu_torch.raytrace import renderer as RR
+    from aic_tpu_torch.raytrace import trace_kernel as tk
+    from aic_tpu_torch.raytrace import trace_kernel_v1 as v1
+    from aic_tpu_torch import block
+    from aic_tpu_torch.math.grid import GridAab
+    from aic_tpu_torch.space import Sky, Space, SpacePhysics
+    from aic_tpu_torch.universe import Universe
+    from aic_tpu_torch.universe.cursor import cursor_raycast
+
+    R = importlib.import_module("aic_tpu_torch.raytrace.render")
+    full = (RENDER_H, RENDER_W, 4)
+    reset_counts()
+
+    # The atrium: the general tracer against K1 on the same rays.
+    atrium_space = atrium()
+    st, passes, relight_s = relit(atrium_space, dev, "atrium")
+    cam = default_camera(atrium_space, RENDER_W, RENDER_H, opts)
+    o, d = cam.pixel_rays(device=dev)
+    (lg, tg, stats), gen_first = synced(lambda: trace_rays(st, o, d, cam.options, return_stats=True))
+    (lg, tg, stats), gen_s = synced(lambda: trace_rays(st, o, d, cam.options, return_stats=True))
+    (lk, tkk, unfinished), k1_s = synced(lambda: tk.trace_rays_kernel(st, o, d, cam.options, megakernel=True))
+    if bool(stats["unfinished"]) or unfinished:
+        fail(f"render atrium: unfinished rays (general {bool(stats['unfinished'])}, K1 {unfinished})")
+    n = lg.shape[0] * lg.shape[1]
+    far = ((lg - lk).abs().amax(-1) > PIXEL_ATOL) | ((tg - tkk).abs() > PIXEL_ATOL)
+    n_far = int(far.sum())
+    if n_far > PIXEL_MAX_SHARE * n:
+        fail(f"render atrium: general tracer vs K1: {n_far} of {n} pixels differ by more than {PIXEL_ATOL}")
+    phase("render", f"atrium {RENDER_W}x{RENDER_H} ({smi}): general tracer {gen_s * 1e3:.1f} ms (first {gen_first * 1e3:.1f}), "
+          f"iterations per phase {stats['iters'].tolist()}, walkers {stats['walkers'].tolist()}; K1's frame "
+          f"{k1_s * 1e3:.1f} ms; {n_far} of {n} pixels over {PIXEL_ATOL} (limit {int(PIXEL_MAX_SHARE * n)}), "
+          f"max abs diff {float((lg - lk).abs().max()):.3e}")
+    del lg, tg, lk, tkk
+
+    frame, frame_s = traced_by(lambda: R.render(st, cam), "megakernel", "atrium")
+    check_image(frame.data, full, "atrium")
+    cost_opts = dataclasses.replace(cam.options, debug_pixel_cost=True)
+    cost_cam = Camera(cost_opts, Viewport(RENDER_W, RENDER_H), eye_to_world=cam.eye_to_world)
+    cost, cost_s = synced(lambda: R.render(st, cost_cam))
+    if cost.data.shape != full or cost.data[..., 0].max() != 255:
+        fail(f"render atrium pixel cost: shape {cost.data.shape}, red max {cost.data[..., 0].max()}")
+    depth, depth_s = synced(lambda: R.render_depth(st, cam))
+    hit_share = float(torch.isfinite(depth).float().mean())
+    if depth.shape != full[:2] or hit_share < 0.5 or bool((depth[torch.isfinite(depth)] <= 0).any()):
+        fail(f"render atrium depth: shape {tuple(depth.shape)}, hit share {hit_share:.3f}")
+    scaled, scaled_s = traced_by(lambda: R.render_scaled(st, cam, 0.5), "megakernel", "atrium scaled 0.5")
+    check_image(scaled.data, full, "atrium scaled 0.5")
+    if scaled.flaws:
+        fail(f"render atrium scaled 0.5: flaws {scaled.flaws}")
+    bounce_opts = dataclasses.replace(cam.options, lighting_display="bounce")
+    bounce_cam = Camera(bounce_opts, Viewport(RENDER_W, RENDER_H), eye_to_world=cam.eye_to_world)
+    bounce, bounce_s = traced_by(lambda: R.render(st, bounce_cam), "bounce", "atrium bounce")
+    check_image(bounce.data, full, "atrium bounce")
+    phase("render", f"atrium {RENDER_W}x{RENDER_H} ({smi}): render (K1) {frame_s * 1e3:.1f} ms; pixel cost (general) "
+          f"{cost_s * 1e3:.1f} ms; depth (general) {depth_s * 1e3:.1f} ms, {hit_share:.3f} of pixels hit; "
+          f"render_scaled(0.5) (K1 at {RENDER_W // 2}x{RENDER_H // 2}) {scaled_s * 1e3:.1f} ms; bounce ({bounce_opts.bounce_samples} "
+          f"samples, general) {bounce_s * 1e3:.1f} ms")
+
+    # RtRenderer: a small UI space in front, the atrium's player, a cursor.
+    ui = Space(GridAab.from_lower_size((-3, -3, -4), (2, 1, 1)),
+               physics=SpacePhysics(sky=Sky.uniform((1.0, 1.0, 0.5)), light_enabled=False))
+    ui.set((-3, -3, -4), block.from_color((0.0, 1.0, 0.0, 1.0)))
+    ui.set((-2, -3, -4), block.from_color((1.0, 0.0, 0.0, 0.5)))
+    u = Universe(device=dev)
+    eye = cam.eye_to_world[:3, 3]
+    atrium_space.spawn_eye_position = tuple(eye)
+    atrium_space.spawn_look_direction = tuple(-cam.eye_to_world[:3, 2])
+    u.insert_space("world", atrium_space)
+    u.states["world"] = st
+    u.insert_character("player", "world", tuple(eye))
+    cams = RR.StandardCameras(cam.options, Viewport(RENDER_W, RENDER_H), RR.CharacterSource(u, "player"),
+                              RR.UiViewState(state=ui.snapshot(device=dev), graphics_options=cam.options))
+    renderer = RR.RtRenderer(cams)
+    origin, direction = cams.cameras().world.project_ndc_into_world(np.zeros(2))
+    cursor = cursor_raycast(atrium_space, origin, direction, 1e4)
+    if cursor is None:
+        fail("render RtRenderer: no cursor at the centre of the atrium's view")
+    renderer.update(cursor=cursor)
+    before = dict(R.TRACES)
+    drawn, draw_s = synced(lambda: renderer.draw("aic_tpu_torch\nrender phase"))
+    ran = {k: R.TRACES[k] - before[k] for k in before if R.TRACES[k] != before[k]}
+    if ran != {"megakernel": 2}:  # the UI layer and the world
+        fail(f"render RtRenderer: traced by {ran}")
+    check_image(drawn.data, full, "RtRenderer", alpha_min=1.0)
+    white = int((drawn.data[..., :3] == 255).all(-1).sum())
+    if drawn.flaws or white == 0:
+        fail(f"render RtRenderer: flaws {drawn.flaws}, {white} white text pixels")
+    phase("render", f"RtRenderer.draw {RENDER_W}x{RENDER_H} ({smi}): UI layer + atrium + NO_WORLD fill + cursor at "
+          f"{cursor.cube} + info text: {draw_s * 1e3:.1f} ms, traced by {ran}")
+    del st, depth, renderer, u
+
+    # "Smallest" (R128): past both kernels, through the general tracer.
+    sp = smallest_exhibit()
+    st, _, _ = relit(sp, dev, "smallest")
+    if tk.megakernel_fits(st) or v1.v1_fits(st) or st.tables.padded_voxel_resolution != 128:
+        fail(f"render smallest: voxel resolution {st.tables.padded_voxel_resolution}: a kernel would hold it")
+    scam = Camera(opts, Viewport(RENDER_W, RENDER_H))
+    scam.look_at((0.504, 0.04, 0.55), (0.5039, 0.0039, 0.5039))  # the eye inside the R128 block's cube
+    frame, s_first = traced_by(lambda: R.render(st, scam), "general", "smallest")
+    frame, s_warm = traced_by(lambda: R.render(st, scam), "general", "smallest")
+    hits = int(torch.isfinite(R.render_depth(st, scam)).sum())
+    if frame.data.shape != full or frame.flaws or hits == 0:
+        fail(f"render smallest: shape {frame.data.shape}, flaws {frame.flaws}, {hits} pixels hit")
+    phase("render", f"smallest (R128, {tuple(st.contents.shape)}) {RENDER_W}x{RENDER_H} ({smi}): general tracer "
+          f"{s_warm * 1e3:.1f} ms (first {s_first * 1e3:.1f}); {hits} pixels hit the 1/128 voxel")
+    del st
+
+    # plaza(1280): 6,400 regions, under the window volume.
+    sp = plaza(PLAZA_GENERAL)
+    st, passes, relight_s = relit(sp, dev, f"plaza{PLAZA_GENERAL}")
+    n_cubes = st.contents.numel()
+    if tk.region_count(st) <= tk.MAX_REGIONS or n_cubes > R.AUTO_WINDOW_VOLUME:
+        fail(f"render plaza{PLAZA_GENERAL}: {tk.region_count(st)} regions, {n_cubes} cubes")
+    pcam = default_camera(sp, RENDER_W, RENDER_H, opts)
+    frame, s_first = traced_by(lambda: R.render(st, pcam), "general", f"plaza{PLAZA_GENERAL}")
+    check_image(frame.data, full, f"plaza{PLAZA_GENERAL}")
+    (light, trans, stats), s_warm = traced_by(lambda: R.render_hdr(st, pcam, with_stats=True), "general",
+                                              f"plaza{PLAZA_GENERAL} stats")
+    if bool(stats["unfinished"]) or frame.flaws:
+        fail(f"render plaza{PLAZA_GENERAL}: unfinished rays, flaws {frame.flaws}")
+    slow = ""
+    if max(s_first, s_warm) > GENERAL_SLOW_S:
+        hcam = default_camera(sp, RENDER_W // 2, RENDER_H // 2, opts)
+        _, s_half = traced_by(lambda: R.render(st, hcam), "general", f"plaza{PLAZA_GENERAL} 960x540")
+        slow = f"; over {GENERAL_SLOW_S:g} s, so also at {RENDER_W // 2}x{RENDER_H // 2}: {s_half * 1e3:.1f} ms"
+    phase("render", f"plaza{PLAZA_GENERAL} {tuple(st.contents.shape)} ({n_cubes} cubes, {tk.region_count(st)} "
+          f"regions) {RENDER_W}x{RENDER_H} ({smi}): relit in {passes} passes {relight_s:.3f} s; render (general) "
+          f"{s_first * 1e3:.1f} ms, render_hdr {s_warm * 1e3:.1f} ms; iterations per phase "
+          f"{stats['iters'].tolist()}, walkers {stats['walkers'].tolist()}{slow}")
+    general = dict(ms=s_first * 1e3, hdr_ms=s_warm * 1e3, iters=stats["iters"].tolist())
+    del st, light, trans
+
+    # plaza(1536): over the window volume; windowed, then a kernel.
+    sp = plaza(PLAZA_WINDOWED)
+    st, passes, relight_s = relit(sp, dev, f"plaza{PLAZA_WINDOWED}")
+    n_cubes = st.contents.numel()
+    if n_cubes <= R.AUTO_WINDOW_VOLUME:
+        fail(f"render plaza{PLAZA_WINDOWED}: {n_cubes} cubes, not over the window volume")
+    wcam = default_camera(sp, RENDER_W, RENDER_H, opts)
+    win, win_s = synced(lambda: R.view_window(st, wcam))
+    tracer, pick_s = synced(lambda: R.pick_tracer(win))
+    if tracer not in ("megakernel", "v1") or win.contents.numel() >= n_cubes:
+        fail(f"render plaza{PLAZA_WINDOWED}: window {tuple(win.contents.shape)} takes {tracer}")
+    frame, frame_s = traced_by(lambda: R.render(st, wcam), tracer, f"plaza{PLAZA_WINDOWED}")
+    check_image(frame.data, full, f"plaza{PLAZA_WINDOWED}")
+    (lw, tw), whole_s = traced_by(lambda: R.render_hdr(st, wcam), "general", f"plaza{PLAZA_WINDOWED} whole")
+    whole = R.finish_frame(lw, tw, float(wcam.exposure), wcam.options).cpu().numpy()
+    crop = (slice(RENDER_H // 6, RENDER_H * 5 // 6), slice(RENDER_W // 8, RENDER_W * 7 // 8))
+    diff = np.abs(whole[crop].astype(int) - frame.data[crop].astype(int))
+    median, share = float(np.median(diff)), float((diff > WINDOW_FAR).mean())
+    if median != 0 or share > WINDOW_MAX_SHARE:
+        fail(f"render plaza{PLAZA_WINDOWED}: windowed vs whole frame: median {median}, {share:.4f} over {WINDOW_FAR}")
+    phase("render", f"plaza{PLAZA_WINDOWED} {tuple(st.contents.shape)} ({n_cubes} cubes) {RENDER_W}x{RENDER_H} ({smi}): "
+          f"relit in {passes} passes {relight_s:.3f} s; window {tuple(win.contents.shape)} lower {win.lower} "
+          f"built in {win_s * 1e3:.1f} ms, its {tracer} tables in {pick_s * 1e3:.1f} ms; render (window + "
+          f"tables + {tracer}) {frame_s * 1e3:.1f} ms; the whole state through the general tracer "
+          f"{whole_s * 1e3:.1f} ms; central crop: median diff {median:g}, {share:.4f} of channels over "
+          f"{WINDOW_FAR} (limit {WINDOW_MAX_SHARE})")
+    del st, win, lw, tw
+    counts = read_counts()
+    for name in ("relight_pass", "trace_megakernel"):
+        if counts[name] <= 0:
+            fail(f"render phase: {name} was not launched: {counts}")
+    phase("render", f"launches {counts}")
+    return dict(counts=counts, general=general)
+
+
 def main() -> None:
     sys.path.insert(0, HERE)
     import torch
@@ -1994,7 +2267,11 @@ def main() -> None:
     # 7. demo-city: built, relit, rendered, stepped and rendered again.
     city = city_world(dev, opts, reset_counts, read_counts)
 
-    counts = {k: atrium_counts[k] + plaza_counts[k] + city["counts"][k] for k in atrium_counts}
+    # 8. the render API and the general tracer.
+    rendered = render_world(dev, opts, smi, reset_counts, read_counts)
+
+    counts = {k: atrium_counts[k] + plaza_counts[k] + city["counts"][k] + rendered["counts"][k]
+              for k in atrium_counts}
     counts["relight_batch"] = (sum(st["counts"]["relight_batch"] for st in steps.values())
                                + city["counts"]["relight_batch"])
     rows = [

@@ -84,8 +84,8 @@ def test_city_frame_matches_aic_tpu(cities):
     np.testing.assert_allclose(tcam.eye_to_world, jcam.eye_to_world)
     want_l, want_t = jax_render_hdr(js.snapshot(), jcam)
     before = trace_kernel.LAUNCHES
-    got_l, got_t, unfinished = render_hdr(ts.snapshot(device="cpu"), tcam)
-    assert trace_kernel.LAUNCHES == before and not unfinished
+    got_l, got_t, stats = render_hdr(ts.snapshot(device="cpu"), tcam, with_stats=True)
+    assert trace_kernel.LAUNCHES == before and not stats["unfinished"]
     assert float(got_l.max()) > 0.05
     np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), atol=PIXEL_ATOL)
     np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), atol=PIXEL_ATOL)

@@ -282,9 +282,9 @@ def test_small_atrium_frame_matches_cpu(cuda_device):
     assert passes >= 1 and relight_kernel.LAUNCHES > 0
     cam = default_camera(space, 96, 64, GraphicsOptions(lighting_display="smoothstep", fog="none"))
     before = trace_kernel.LAUNCHES
-    gl, gt, unfinished = render_hdr(lit, cam)
-    assert trace_kernel.LAUNCHES > before and not unfinished
-    cl, ct, _ = render_hdr(lit.to("cpu"), cam)
+    gl, gt, stats = render_hdr(lit, cam, with_stats=True)
+    assert trace_kernel.LAUNCHES > before and not stats["unfinished"]
+    cl, ct = render_hdr(lit.to("cpu"), cam)
     np.testing.assert_allclose(gl.cpu().numpy(), cl.numpy(), atol=2e-3)
     np.testing.assert_allclose(gt.cpu().numpy(), ct.numpy(), atol=2e-3)
     frame = render(lit, cam)
@@ -621,3 +621,69 @@ def test_demo_city_steps_on_the_card_like_the_cpu(cuda_device):
     assert np.abs(la[..., :3] - lb[..., :3]).max() <= 1
     np.testing.assert_array_equal(la[..., 3], lb[..., 3])
     np.testing.assert_allclose(us["cuda"].bodies.position.cpu().numpy(), us["cpu"].bodies.position.numpy(), atol=1e-4)
+
+
+# -- the general tracer and windowing (PyTorch, no kernel of their own) --------
+
+
+def _r64_scene():
+    inner = Space(GridAab.cube(64))
+    inner.fill(GridAab.from_lower_size((0, 0, 0), (64, 8, 64)), block.from_color((0.9, 0.7, 0.2, 1.0)))
+    for i in range(64):
+        inner.set((i, i, 63 - i), block.from_color((0.2, 0.4, 0.9, 1.0)))
+    inner.fill(GridAab.from_lower_size((8, 40, 8), (48, 1, 48)), block.from_color((0.9, 0.1, 0.1, 0.5)))
+    sp = Space(GridAab.cube(12), physics=SpacePhysics(sky=Sky.uniform((0.3, 0.32, 0.4))))
+    sp.set((5, 4, 5), block.Block(block.Recur(space=inner, resolution=64)))
+    sp.fill(GridAab.from_lower_size((0, 0, 0), (12, 1, 12)), block.from_color((0.4, 0.6, 0.3, 1.0)))
+    return sp
+
+
+@pytest.mark.parametrize("scene", ["atrium_small", "r64"])
+def test_general_tracer_on_the_card_like_the_cpu(cuda_device, scene):
+    """`tracer.trace_rays` on the card against the same call on the CPU:
+    hits, step counts and stats equal, hit t within 1e-5 relative, light
+    within 2e-3; `render` dispatches the R64 state to it on both."""
+    from aic_tpu_torch.raytrace import Camera, Viewport, trace_rays
+    from aic_tpu_torch.raytrace.render import pick_tracer
+
+    opts = GraphicsOptions(lighting_display="smoothstep", fog="none", transparency="volumetric")
+    if scene == "atrium_small":
+        sp = atrium(width=24, depth=16, floors=2)
+        cam = default_camera(sp, 128, 96, opts)
+    else:
+        sp = _r64_scene()
+        cam = Camera(opts, Viewport(128, 96))
+        cam.look_at((14.0, 9.0, 16.0), (5.5, 4.5, 5.5))
+    st, _ = fast_evaluate_seed(sp.snapshot(device=cuda_device))
+    o, d = cam.pixel_rays(device=cuda_device)
+    kw = dict(return_stats=True, return_hits=True, count_steps=True)
+    gl, gt, gs, gh, gsteps = trace_rays(st, o, d, cam.options, **kw)
+    cl, ct, cs, ch, csteps = trace_rays(st.to("cpu"), o.cpu(), d.cpu(), cam.options, **kw)
+    assert (ch["hit_kind"] != 0).float().mean() > 0.1
+    for k in ("iters", "walkers"):
+        assert gs[k].tolist() == cs[k].tolist(), k
+    assert bool(gs["unfinished"]) == bool(cs["unfinished"]) is False
+    for p, (g, c) in enumerate(zip(gh["phases"], ch["phases"])):
+        for k in ("hit_kind", "hit_idx", "hit_vflat", "hit_face", "hit_cube"):
+            assert torch.equal(g[k].cpu(), c[k]), (p, k)
+        np.testing.assert_allclose(g["hit_t"].cpu().numpy(), c["hit_t"].numpy(), rtol=1e-5, atol=0)
+    assert torch.equal(gsteps.cpu(), csteps)
+    np.testing.assert_allclose(gl.cpu().numpy(), cl.numpy(), atol=2e-3)
+    np.testing.assert_allclose(gt.cpu().numpy(), ct.numpy(), atol=2e-3)
+    want = "general" if scene == "r64" else "megakernel"  # R64: past both kernels
+    assert pick_tracer(st) == pick_tracer(st.to("cpu")) == want
+
+
+def test_window_state_on_the_card_like_the_cpu(cuda_device):
+    """`window_state` rebuilds the window's cells on the card (the skip
+    field's max pools) bit for bit as on the CPU."""
+    from aic_tpu_torch.content import plaza
+    from aic_tpu_torch.space.state import visible_light_volume, window_state
+
+    st = plaza(160).snapshot(device=cuda_device)
+    lo, hi = visible_light_volume(st, (80.0, 6.0, 100.0), 20.0)
+    win = window_state(st, lo, hi)
+    ref = window_state(st.to("cpu"), lo, hi)
+    assert win.contents.shape[0] < st.contents.shape[0] and win.lower == ref.lower
+    for k in ("contents", "light", "light_dirty", "cells"):
+        assert torch.equal(getattr(win, k).cpu(), getattr(ref, k)), k

@@ -1,8 +1,9 @@
 """Checks of two repairs of the port (ROADMAP §C; the third, the
 over-relaxed relight loop, is tests/test_torch_converge.py): `render`
-refuses the pixel-cost debug option it cannot honour, and the v1 round
-loop's state is held against `aic_tpu`'s round by round, not only
-through images.
+under the pixel-cost debug option returns `aic_tpu`'s pixel-cost image
+(it once refused the option, having no general tracer to count steps
+with), and the v1 round loop's state is held against `aic_tpu`'s round
+by round, not only through images.
 
 The round-by-round check records every round of `aic_tpu`'s
 `_trace_pallas_impl` (its kernel in interpret mode, the function run
@@ -36,13 +37,25 @@ from test_torch_trace_v1 import FIELD_CASES
 
 
 def test_render_refuses_debug_pixel_cost():
-    """`aic_tpu` returns its pixel-cost image for this option; the port has
-    none yet and raises instead of returning a shaded frame."""
-    st = PKGS["torch"].cornell_box(8).snapshot(device="cpu")
-    cam = Camera(GraphicsOptions(debug_pixel_cost=True), Viewport(4, 2))
-    cam.look_at(np.array([4.0, 4.0, 20.0]), np.array([4.0, 4.0, 4.0]))
-    with pytest.raises(NotImplementedError, match="pixel-cost"):
-        render(st, cam)
+    """`render` with `debug_pixel_cost` returns the pixel-cost heatmap of
+    the general tracer's step counts, equal to `aic_tpu`'s
+    `render_pixel_cost` (the name is the test's from before the general
+    tracer was ported, when the port refused the option)."""
+    from aic_tpu.raytrace import Camera as JCamera
+    from aic_tpu.raytrace import GraphicsOptions as JOptions
+    from aic_tpu.raytrace import Viewport as JViewport
+    from aic_tpu.raytrace.render import render_pixel_cost
+
+    eye, target = np.array([4.0, 4.0, 14.0]), np.array([4.0, 4.0, 4.0])
+    jcam = JCamera(JOptions(debug_pixel_cost=True), JViewport(16, 8))
+    jcam.look_at(eye, target)
+    cam = Camera(GraphicsOptions(debug_pixel_cost=True), Viewport(16, 8))
+    cam.look_at(eye, target)
+    want = render_pixel_cost(PKGS["jax"].cornell_box(8).snapshot(), jcam)
+    got = render(PKGS["torch"].cornell_box(8).snapshot(device="cpu"), cam)
+    np.testing.assert_array_equal(got.data, want.data)
+    assert got.flaws == want.flaws == ()
+    assert got.data[..., 0].max() == 255 and (got.data[..., 3] == 255).all()
 
 
 # -- C3: the v1 round loop against aic_tpu's, round by round -------------------------

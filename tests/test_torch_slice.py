@@ -78,9 +78,11 @@ def test_frame_matches(slice_run, light_from):
         jst = dataclasses.replace(r["jax_lit"], light=jnp.asarray(tst.light.numpy()))
     want_l, want_t = jax_render_hdr(jst, r["jcam"])
     before = trace_kernel.LAUNCHES
-    got_l, got_t, unfinished = render_hdr(tst, r["tcam"])
+    got_l, got_t, stats = render_hdr(tst, r["tcam"], with_stats=True)
     assert trace_kernel.LAUNCHES == before  # CPU tensors: plain version
-    assert not unfinished
+    assert not stats["unfinished"]
+    got_l2, got_t2 = render_hdr(tst, r["tcam"])  # `aic_tpu`'s pair without stats
+    assert torch.equal(got_l2, got_l) and torch.equal(got_t2, got_t)
     np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), atol=2e-3)
     np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), atol=2e-3)
 

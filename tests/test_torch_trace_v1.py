@@ -111,12 +111,13 @@ def test_bitmask_ctx_equal(name):
 
 def test_v1_refuses_r32_like_aic_tpu():
     """R32 blocks: both packages' v1 tables refuse them; with the
-    megakernel forced off the port raises, naming the missing tracer."""
+    megakernel forced off the port raises, naming the general tracer
+    that holds them."""
     st = scene_r32()
     with pytest.raises(ValueError):
         pallas_trace.build_bitmask_ctx(st)
     o, d = random_rays(8, -4.0, 24.0, seed=1)
-    with pytest.raises(ValueError, match="XLA tracer"):
+    with pytest.raises(ValueError, match="general tracer"):
         trace_kernel.trace_rays_kernel(
             to_port(st), torch.as_tensor(o), torch.as_tensor(d), torch_options(OPTS_PLAIN),
             megakernel=False,
