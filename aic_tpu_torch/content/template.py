@@ -2,9 +2,8 @@
 
 Port of `aic_tpu/content/template.py` (the reference's
 all-is-cubes-content/src/template.rs:82-126 `UniverseTemplate` with
-seeded `TemplateParameters`), copied but for three changes:
+seeded `TemplateParameters`), copied but for two changes:
 
-- `menu` waits for the voxel-UI pages (`vui/page.py`, ROADMAP A9);
 - `plaza640`, the port's own world (`plaza.py`), is added;
 - `build_universe` snapshots on `device` (the card unless the caller
   asks for the CPU).
@@ -205,12 +204,26 @@ def build_template_space(name: str, params: TemplateParameters = TemplateParamet
         return atrium(params.seed)
     if name == "plaza640":
         return plaza(params.size or 640)
+    if name == "menu":
+        # UniverseTemplate::Menu (template.rs:82): a voxel-UI page listing
+        # the world templates as buttons (vui/page.rs). The port's own
+        # plaza640 is left off, so the menu equals `aic_tpu`'s.
+        from ..vui import main_menu_page
+
+        worlds = [t for t in TEMPLATE_NAMES if t not in ("menu", "fail", "plaza640")]
+        sp = main_menu_page(worlds)
+        sp.spawn_position = np.array(
+            [sp.bounds.size[0] / 2.0, sp.bounds.size[1] / 2.0, sp.bounds.upper[2] + 12.0]
+        )
+        sp.fast_evaluate_light()
+        return sp
     if name == "fail":
         raise RuntimeError("UniverseTemplate::Fail (intentional failure for testing)")
     raise KeyError(f"unknown template {name!r}; available: {', '.join(TEMPLATE_NAMES)}")
 
 
 TEMPLATE_NAMES = [
+    "menu",
     "blank",
     "random",
     "dungeon",

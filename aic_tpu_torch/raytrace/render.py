@@ -328,11 +328,12 @@ def render_scaled(state: SpaceState, camera: Camera, scale: float) -> Rendering:
     return Rendering(vp.width, vp.height, data, r.flaws)
 
 
-def save_png(rendering: Rendering, path: str) -> None:
-    """Write the RGBA image as a PNG (zlib + struct; no imaging library)."""
-    data = np.ascontiguousarray(rendering.data, np.uint8)
-    h, w = data.shape[:2]
-    raw = b"".join(b"\x00" + data[y].tobytes() for y in range(h))
+def encode_png(data: np.ndarray) -> bytes:
+    """An RGBA (u8[H,W,4]) or RGB (u8[H,W,3]) image as PNG bytes, in
+    memory (zlib level 6 + struct; no imaging library)."""
+    data = np.ascontiguousarray(data, np.uint8)
+    h, w, c = data.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), data.reshape(h, w * c)], axis=1).tobytes()
 
     def chunk(kind: bytes, body: bytes) -> bytes:
         return (
@@ -342,11 +343,39 @@ def save_png(rendering: Rendering, path: str) -> None:
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
         )
 
-    png = (
+    color_type = {4: 6, 3: 2}[c]
+    return (
         b"\x89PNG\r\n\x1a\n"
-        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0))
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
         + chunk(b"IDAT", zlib.compress(raw, 6))
         + chunk(b"IEND", b"")
     )
+
+
+def decode_png(png: bytes) -> np.ndarray:
+    """The image of a PNG that `encode_png` wrote (8-bit RGB or RGBA, no
+    interlace, every row filtered with type 0), as u8[H,W,C]."""
+    if png[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG")
+    pos, idat = 8, []
+    while pos < len(png):
+        n, kind = struct.unpack(">I4s", png[pos : pos + 8])
+        body = png[pos + 8 : pos + 8 + n]
+        if kind == b"IHDR":
+            w, h, depth, color_type, _, _, interlace = struct.unpack(">IIBBBBB", body)
+            if depth != 8 or color_type not in (2, 6) or interlace:
+                raise ValueError(f"unsupported PNG: depth {depth}, colour type {color_type}")
+        elif kind == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    c = 4 if color_type == 6 else 3
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * c)
+    if rows[:, 0].any():
+        raise ValueError("PNG rows use a filter other than None")
+    return rows[:, 1:].reshape(h, w, c).copy()
+
+
+def save_png(rendering: Rendering, path: str) -> None:
+    """Write the RGBA image as a PNG (`encode_png`)."""
     with open(path, "wb") as f:
-        f.write(png)
+        f.write(encode_png(rendering.data))

@@ -19,9 +19,8 @@ caller asks for the CPU). One `step()` runs the reference's phases:
                   `light_batch_size` cubes (space/step.rs:338) for the
                   spaces the device tick did not relight
 
-Left out until the port's IO (ROADMAP A9): save/load and provenance
-beyond `NoWhence`, telemetry; sound and tag members come with the
-slices that read them.
+`Universe.whence` is its storage origin (io/whence.py); an attached
+`telemetry` (logging.py `Telemetry`) gets one record a step.
 """
 
 from __future__ import annotations
@@ -184,6 +183,8 @@ class Universe:
         self.spaces: dict[str, Space] = {}
         self.states: dict[str, object] = {}  # name -> SpaceState (device)
         self.block_defs: dict[str, object] = {}
+        #: Named SoundDef members (universe sound members, sound.rs role).
+        self.sounds: dict[str, object] = {}
         self.characters: dict[str, Character] = {}
         self.behaviors: list[tuple[str, Behavior, int]] = []  # (host, behavior, wake_tick)
         self.bodies: Optional[Body] = None  # the body batch, on the device
@@ -213,11 +214,13 @@ class Universe:
         self._fluff_seq = 0
         self._fluff_floor = 0
         self._fluff_cursors: dict = {}
+        #: Tag definitions (tag.rs TagDef universe members).
+        self.tags: dict[str, object] = {}
 
     # -- membership (universe.rs:419 insert) --------------------------------
 
     def _member_dicts(self):
-        return (self.spaces, self.block_defs, self.characters)
+        return (self.spaces, self.block_defs, self.sounds, self.tags, self.characters)
 
     def member_names(self) -> set:
         out = set()
@@ -584,6 +587,20 @@ class Universe:
                 self.states[name] = st
 
         info.wall_time_s = _time.perf_counter() - t0
+        tele = getattr(self, "telemetry", None)
+        if tele is not None:
+            # One structured record per step with phase timings (logging.py
+            # Telemetry); reading the device stats syncs, so only when on.
+            tele.record(
+                "universe_step",
+                tick=info.tick,
+                wall_ms=round(info.wall_time_s * 1000, 3),
+                space_edits=info.space_edits,
+                light_updates=info.light_updates,
+                light_queue=info.light_queue,
+                behaviors=info.behaviors_run,
+                phases={k: round(v.total_s * 1000, 3) for k, v in self.profiler.spans.items()},
+            )
         return info
 
     def _apply_plan_host(self, name: str, plan, ticks: int) -> None:

@@ -97,11 +97,31 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    tracer that `render.pick_tracer` names (`render.TRACES`) and prints
    its host-clock time after a synchronization beside the card's name
    and power limit; the general tracer's iterations per phase.
-9. the kernels line (JSON; K1's row from demo-city's frame, its phases'
+9. session — the interactive layer: demo-city (seed 0, size 96) from
+   `build_universe`, relit by `evaluate_light`, played by a `Session` at
+   1920x1080 with its HUD: 35 warm-up steps, then 10 frames of
+   `maybe_step` + `render_with_ui` (a clock advancing 1/60 s a frame),
+   each synchronized, the counters set to 0 before the build and read
+   after; the median and max frame, its stages (step, world layer, UI
+   layer, composite, post-process, copy to host), the UI snapshots and
+   K1 table builds, the tracer of each layer against `pick_tracer`.
+   Every K1 launch of one session frame (world and UI) against the twin,
+   timed alone. On the card: a toolbar click selects its slot, the
+   composite equals `composite_over` of the layers rendered apart, `p`
+   opens the paused page (rendered), `cycle_setting` reaches the
+   options. The WebSocket server on port 0: 8 inputs carrying `t`, each
+   timed to the frame echoing it (`echo_t`), render_ms, the PNG's encode
+   time and bytes, a pushed PNG decoded (1920x1080 RGBA), `/info` and
+   `/frame.png`. The stepped universe saved through `FileWhence` and
+   reopened by `python3 -m aic_tpu_torch.main FILE --graphics print` and
+   `--graphics terminal` (no tty) as subprocesses: both exit 0 and load
+   the saved space.
+10. the kernels line (JSON; K1's row from demo-city's frame, its phases'
    launches summed; K2's listed mode as `relight_batch`, from the atrium
    step's batch that walked the most rows; launches summed over every
-   main path, demo-city's and the render phase's included), the
-   `nvidia-smi` line, and the last line {"ok": true, "device": {...}}.
+   main path, demo-city's, the render phase's and the session's
+   included), the `nvidia-smi` line, and the last line
+   {"ok": true, "device": {...}}.
 
 Needs CUDA and the `aic_tpu_torch` package beside this file; imports no
 JAX.
@@ -2055,6 +2075,323 @@ def render_world(dev, opts, smi, reset_counts, read_counts) -> dict:
     return dict(counts=counts, general=general)
 
 
+# -- the interactive session: demo-city with its HUD, served ------------------
+
+#: The session phase: demo-city as bench.py's interactive loop plays it
+#: (bench.py:248-289: 35 warm-up steps, 10 frames), its viewport, and the
+#: WebSocket inputs timed to their frame (bench.py:294-366).
+SESSION_W, SESSION_H = 1920, 1080
+SESSION_WARMUP = 35
+SESSION_FRAMES = 10
+WS_INPUTS = 8
+
+
+def _ws_client_frame(payload: bytes, opcode: int = 0x1) -> bytes:
+    """A masked client frame (RFC 6455 §5.3), payload < 126 bytes."""
+    key = b"\x01\x02\x03\x04"
+    return bytes([0x80 | opcode, 0x80 | len(payload)]) + key + bytes(b ^ key[i & 3] for i, b in enumerate(payload))
+
+
+def _ws_read_frame(f):
+    import struct
+
+    head = f.read(2)
+    if len(head) < 2:
+        fail("session server: the WebSocket closed")
+    n = head[1] & 0x7F
+    if n == 126:
+        n = struct.unpack(">H", f.read(2))[0]
+    elif n == 127:
+        n = struct.unpack(">Q", f.read(8))[0]
+    return head[0] & 0x0F, f.read(n)
+
+
+def _ws_handshake(port: int):
+    import socket
+
+    from aic_tpu_torch.apps.server import ws_accept_key
+
+    key = "dGhlIHNhbXBsZSBub25jZQ=="
+    sock = socket.create_connection(("127.0.0.1", port), timeout=120)
+    sock.sendall(b"GET /ws HTTP/1.1\r\nHost: 127.0.0.1\r\nUpgrade: websocket\r\nConnection: Upgrade\r\n"
+                 b"Sec-WebSocket-Key: " + key.encode() + b"\r\nSec-WebSocket-Version: 13\r\n\r\n")
+    f = sock.makefile("rb")
+    if b"101" not in f.readline():
+        fail("session server: no 101 Switching Protocols")
+    headers = {}
+    while True:
+        line = f.readline().strip()
+        if not line:
+            break
+        k, _, v = line.partition(b":")
+        headers[k.decode().lower()] = v.strip().decode()
+    if headers.get("sec-websocket-accept") != ws_accept_key(key):
+        fail(f"session server: bad Sec-WebSocket-Accept {headers}")
+    return sock, f
+
+
+def _pixel_of(cam, point) -> tuple[int, int]:
+    """The pixel whose centre a world point projects to."""
+    import numpy as np
+
+    clip = np.linalg.inv(cam.inverse_projection_view) @ np.append(np.asarray(point, np.float64), 1.0)
+    ndc = clip[:2] / clip[3]
+    vp = cam.viewport
+    return int((ndc[0] + 1.0) / 2.0 * vp.width), int((1.0 - ndc[1]) / 2.0 * vp.height)
+
+
+def session_world(dev, smi, reset_counts, read_counts) -> dict:
+    """The interactive layer's main path: demo-city (seed 0, size 96)
+    from `build_universe`, relit by `evaluate_light`, played by a
+    `Session` at 1920x1080 with its HUD (`enable_ui`): SESSION_WARMUP
+    steps, then SESSION_FRAMES frames of `maybe_step` + `render_with_ui`
+    on a clock that advances 1/60 s a frame, each synchronized, with the
+    counters set to 0 before the build and read after the frames. The
+    frame's stages are the session profiler's synchronized spans; the UI
+    layer's snapshots and K1 table builds are counted. Then every K1
+    launch of one session frame (both layers) against the twin; the UI
+    on the card (a toolbar click, the pause page, a setting, the
+    composite against `composite_over` of the layers rendered apart);
+    the WebSocket server (`echo_t` round trips, `/info`, `/frame.png`);
+    and a save through `FileWhence`, reopened by `main` in `print` and
+    `terminal` modes as subprocesses."""
+    import importlib
+    import json as _json
+    import tempfile
+    import urllib.request
+
+    import torch
+    from aic_tpu_torch.apps.server import SessionServer
+    from aic_tpu_torch.apps.session import STEP_DT, Session
+    from aic_tpu_torch.content import TemplateParameters, build_universe
+    from aic_tpu_torch.io.whence import FileWhence
+    from aic_tpu_torch.light import dense
+    from aic_tpu_torch.light.update import evaluate_light
+    from aic_tpu_torch.main import space_digest
+    from aic_tpu_torch.raytrace import Viewport, decode_png, encode_png
+    from aic_tpu_torch.raytrace import trace_kernel as tk
+    from aic_tpu_torch.space import Space
+    from aic_tpu_torch.universe.cursor import cursor_raycast
+    from aic_tpu_torch.vui.controller import HudController
+    from aic_tpu_torch.vui.hud import composite_over
+    from aic_tpu_torch.vui.page import cycle_setting
+
+    R = importlib.import_module("aic_tpu_torch.raytrace.render")
+    full = (SESSION_H, SESSION_W, 4)
+
+    # The main path, counted.
+    reset_counts()
+    t0 = time.perf_counter()
+    u = build_universe("demo-city", TemplateParameters(seed=0, size=96), device=dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", dense.OverrelaxFellBack)
+        lit, n = evaluate_light(u.states["world"], batch_size=1024, max_rounds=5000)
+        torch.cuda.synchronize()
+    for w in caught:
+        if not issubclass(w.category, dense.OverrelaxFellBack):
+            warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
+    fell = any(issubclass(w.category, dense.OverrelaxFellBack) for w in caught)
+    u.states["world"] = lit
+    load_s = time.perf_counter() - t0
+    session = Session(u, viewport=Viewport(SESSION_W, SESSION_H))
+    session.enable_ui()
+    for i in range(SESSION_WARMUP):
+        session.maybe_step(i * STEP_DT * 1.0001)
+    torch.cuda.synchronize()
+
+    traces_before = dict(R.TRACES)
+    hud_commits = []
+    real_hud_step = HudController.step
+
+    def hud_step(self, s=None):
+        changed = real_hud_step(self, s)
+        hud_commits.append(changed)
+        return changed
+
+    session.profiler.reset()
+    session.profiler.sync = torch.cuda.synchronize
+    frames, spans = [], []
+    HudController.step = hud_step
+    try:
+        with timed_calls(Space, "snapshot") as snaps, timed_calls(tk, "build_bitmask_ctx2") as tables:
+            for i in range(SESSION_FRAMES):
+                session.profiler.reset()
+                now = (SESSION_WARMUP + i) * STEP_DT * 1.0001
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                session.maybe_step(now)
+                frame = session.render_with_ui()
+                torch.cuda.synchronize()
+                frames.append((time.perf_counter() - t0) * 1e3)
+                spans.append({k: v.total_s * 1e3 for k, v in session.profiler.spans.items()})
+    finally:
+        HudController.step = real_hud_step
+    session.profiler.sync = None
+    counts = read_counts()
+    traced = {k: R.TRACES[k] - traces_before[k] for k in R.TRACES if R.TRACES[k] != traces_before[k]}
+    world_tracer = R.pick_tracer(u.states["world"])
+    ui_tracer = R.pick_tracer(session.ui_state)
+    want = {world_tracer: SESSION_FRAMES}
+    want[ui_tracer] = want.get(ui_tracer, 0) + SESSION_FRAMES
+    if traced != want:
+        fail(f"session: frames traced by {traced}, not {want} (pick_tracer: world {world_tracer}, UI {ui_tracer})")
+    for name in ("relight_pass", "relight_pass_dyn", "relight_batch", "trace_megakernel"):
+        if counts[name] <= 0:
+            fail(f"session main path: {name} was not launched: {counts}")
+    check_image(frame.data, full, "session frame")
+    stage_ms = {k: round(float(np.median([sp.get(k, 0.0) for sp in spans])), 3)
+                for k in ("step", "world", "ui", "composite", "post_process", "to_host")}
+    phase("session", f"demo-city {tuple(lit.contents.shape)} on the card "
+          f"({smi}): build + evaluate_light {load_s:.3f} s ({n} cube updates, fall-back to w = 1: {fell}); "
+          f"{SESSION_WARMUP} warm-up steps; {SESSION_FRAMES} frames of maybe_step + render_with_ui at "
+          f"{SESSION_W}x{SESSION_H} (synchronized, host clock): median {float(np.median(frames)):.3f} ms, max "
+          f"{max(frames):.3f} ms, all {[round(f, 1) for f in frames]}; stages (median ms, synchronized spans) "
+          f"{stage_ms}; traced by {traced} (pick_tracer: world {world_tracer}, UI {ui_tracer}); HUD steps "
+          f"{len(hud_commits)}, commits (new UI snapshots) {sum(hud_commits)}, Space.snapshot calls "
+          f"{len(snaps)}, K1 table builds {len(tables)} ({sum(tables) * 1e3:.1f} ms); launches {counts}")
+
+    # Every K1 launch of one session frame, both layers, against the twin.
+    records = k1_frame_launches(lambda: session.render_with_ui())
+    k1 = k1_frame_summary(check_k1_launches(records, "session"), "session")
+
+    # The UI on the card. A toolbar slot's pixel selects the slot.
+    tx = session.ui_widgets["tx"]
+    slot = 3
+    x, y = _pixel_of(session.ui_camera, (tx + slot + 0.5, 0.5, 1.0))
+    ndc = np.array([2.0 * (x + 0.5) / SESSION_W - 1.0, 1.0 - 2.0 * (y + 0.5) / SESSION_H])
+    cur = cursor_raycast(session.ui_space, *session.ui_camera.project_ndc_into_world(ndc), max_distance=1000.0)
+    if cur is None or tuple(cur.cube[:2]) != (tx + slot, 0):
+        fail(f"session: pixel ({x}, {y}) does not show toolbar slot {slot}: {cur}")
+    before = session.inventory.selected
+    if session.click(x, y) != ("slot", slot) or session.inventory.selected != slot or before == slot:
+        fail(f"session: a click on toolbar slot {slot} left the selection at {session.inventory.selected}")
+    # The composite equals composite_over of the layers rendered apart.
+    cam = session.eye_camera()
+    wl, wt = R.render_hdr(u.states["world"], cam)
+    ul, ut = R.render_hdr(session.ui_state, session.ui_camera, include_sky=False)
+    light, trans = composite_over(ul, ut, wl, wt)
+    from aic_tpu_torch.math.color import linear_to_srgb8
+
+    apart = torch.cat([linear_to_srgb8(cam.post_process(light)),
+                       torch.clamp(torch.round((1.0 - trans) * 255.0), 0, 255).to(torch.uint8)[..., None]],
+                      dim=-1).cpu().numpy()
+    together = session.render_with_ui().data
+    if not np.array_equal(apart, together):
+        fail(f"session: the composite differs from composite_over of the layers in "
+             f"{int((apart != together).any(-1).sum())} pixels")
+    # `p` (the frontends' pause key) opens the pause page, which renders.
+    if session.input.command("p") != ("pause", None):
+        fail("session: `p` is not bound to pause")
+    session.paused = not session.paused
+    page = session.pages.current()
+    if page is None or page.id != "paused":
+        fail(f"session: `p` opened {page and page.id}, not the paused page")
+    before = dict(R.TRACES)
+    paused = session.render_with_ui()
+    page_tracer = R.pick_tracer(page.snapshot())
+    if R.TRACES[page_tracer] - before[page_tracer] < 1:
+        fail(f"session: the paused page was not traced by {page_tracer}")
+    check_image(paused.data, full, "session paused")
+    if (paused.data != together).any(-1).mean() < 0.001:
+        fail("session: the paused page left the frame as it was")
+    # A setting cycled through the settings store reaches the options.
+    fog = session.options.fog
+    cycle_setting(session.settings, "fog")
+    session.apply_settings()
+    if session.options.fog == fog:
+        fail(f"session: cycling fog left it at {fog}")
+    session.back()
+    if session.paused or session.pages.current() is not None:
+        fail("session: back from the paused page did not resume")
+    phase("session", f"UI on the card: a click at ({x}, {y}) selected toolbar slot {slot}; the composite equals "
+          f"composite_over of the world and UI layers rendered apart, bit for bit; `p` opened the paused page "
+          f"(traced by {page_tracer}, {float((paused.data != together).any(-1).mean()):.3f} of the pixels changed); "
+          f"cycle_setting(fog) {fog} -> {session.options.fog}")
+
+    # The server: WebSocket inputs carrying `t`, each timed to the frame
+    # whose metadata echoes it.
+    t0 = time.perf_counter()
+    png = encode_png(together)
+    png_ms = (time.perf_counter() - t0) * 1e3
+    srv = SessionServer(session, port=0, stream_fps=60.0)
+    srv.start()
+    try:
+        sock, f = _ws_handshake(srv.port)
+        lat, lat_meta, render_ms, sizes, pushed = [], [], [], [], None
+        for i in range(WS_INPUTS):
+            t_send = time.perf_counter()
+            stamp = int(t_send * 1e6)
+            sock.sendall(_ws_client_frame(_json.dumps({"keys": ["w"] if i % 2 else [], "t": stamp}).encode()))
+            deadline = time.time() + 60
+            matched = False
+            while time.time() < deadline:
+                opcode, payload = _ws_read_frame(f)
+                if opcode == 0x1:
+                    meta = _json.loads(payload)
+                    matched = meta.get("echo_t") == stamp
+                    if matched:
+                        lat_meta.append((time.perf_counter() - t_send) * 1e3)
+                        render_ms.append(meta["render_ms"])
+                elif opcode == 0x2 and matched:
+                    lat.append((time.perf_counter() - t_send) * 1e3)
+                    sizes.append(len(payload))
+                    pushed = payload
+                    break
+            if not matched:
+                fail(f"session server: input {i} was not echoed within 60 s")
+        sock.sendall(_ws_client_frame(b"", opcode=0x8))
+        sock.close()
+        img = decode_png(pushed)
+        check_image(img, full, "session pushed PNG")
+        base = f"http://127.0.0.1:{srv.port}"
+        info = _json.loads(urllib.request.urlopen(base + "/info", timeout=120).read())
+        if set(info) != {"info_text", "paused"}:
+            fail(f"session server: /info gave {info}")
+        polled = decode_png(urllib.request.urlopen(base + "/frame.png", timeout=120).read())
+        check_image(polled, full, "session /frame.png")
+    finally:
+        srv.shutdown()
+    phase("session", f"server on the card ({smi}): {WS_INPUTS} WebSocket inputs, input->frame (the PNG after the "
+          f"meta echoing the input) median {float(np.median(lat)):.1f} ms, max {max(lat):.1f} ms (to the meta: "
+          f"median {float(np.median(lat_meta)):.1f} ms); render_ms (meta) median {float(np.median(render_ms)):.1f}, "
+          f"max {max(render_ms):.1f}; PNG encode {png_ms:.1f} ms, {len(png)} bytes; pushed frames "
+          f"{int(np.median(sizes))} bytes (median), one decoded: {SESSION_W}x{SESSION_H} RGBA; /info {info}; "
+          f"/frame.png decoded")
+
+    # IO and the CLI: the stepped universe saved through a FileWhence and
+    # reopened by `main` in `print` and `terminal` (no tty) modes.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "demo-city.json")
+        t0 = time.perf_counter()
+        FileWhence(path, device=dev).save(u)
+        save_s = time.perf_counter() - t0
+        want = space_digest(u.spaces["world"])
+        # Both modes at once (two processes on the one card), each waited for.
+        t0 = time.perf_counter()
+        procs = {mode: subprocess.Popen([sys.executable, "-m", "aic_tpu_torch.main", path, "--graphics", mode],
+                                        cwd=HERE, stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True)
+                 for mode in ("print", "terminal")}
+        cli = []
+        for mode, proc in procs.items():
+            try:
+                out, err = proc.communicate(timeout=300)
+            finally:
+                proc.kill()
+            if proc.returncode != 0:
+                fail(f"main {mode} on the saved universe exited {proc.returncode}: {err[-2000:]}")
+            opened = [ln for ln in err.splitlines() if ln.startswith("[open]")]
+            if not opened or not opened[0].endswith(want):
+                fail(f"main {mode}: the loaded space is not the saved one: {opened} vs {want}")
+            if out.count("\n") != 40 or "▀" not in out:
+                fail(f"main {mode}: printed {out.count(chr(10))} lines, not a 120x80 frame's 40")
+            cli.append(f"{mode} done at {time.perf_counter() - t0:.1f} s")
+        size = os.path.getsize(path)
+    phase("session", f"saved the stepped demo-city through FileWhence in {save_s:.3f} s ({size} bytes); main "
+          f"reopened it and printed a frame, both modes started together ({', '.join(cli)}): world {want}")
+    return dict(counts=counts, k1=k1)
+
+
 def main() -> None:
     sys.path.insert(0, HERE)
     import torch
@@ -2191,7 +2528,7 @@ def main() -> None:
         if atrium_counts[name] <= 0:
             fail(f"atrium main path: {name} was not launched: {atrium_counts}")
     coverage = check_frame(frame, state, "atrium")
-    frame, frame_ms = warm_frames(state, cam, 5)
+    frame, frame_ms = warm_frames(state, cam, 3)
     save_png(frame, os.path.join(HERE, "aic_tpu_torch", "_build", "atrium_1080p.png"))
     phase("slice", f"atrium 1920x1080 smoothstep: {frame_ms:.1f} ms/frame warm "
           f"({1920 * 1080 / frame_ms / 1e3:.2f} Mrays/s), alpha coverage {coverage:.3f}")
@@ -2270,10 +2607,13 @@ def main() -> None:
     # 8. the render API and the general tracer.
     rendered = render_world(dev, opts, smi, reset_counts, read_counts)
 
+    # 9. the interactive session: demo-city with its HUD, served.
+    session = session_world(dev, smi, reset_counts, read_counts)
+
     counts = {k: atrium_counts[k] + plaza_counts[k] + city["counts"][k] + rendered["counts"][k]
-              for k in atrium_counts}
+              + session["counts"][k] for k in atrium_counts}
     counts["relight_batch"] = (sum(st["counts"]["relight_batch"] for st in steps.values())
-                               + city["counts"]["relight_batch"])
+                               + city["counts"]["relight_batch"] + session["counts"]["relight_batch"])
     rows = [
         ("trace_megakernel", "aic_tpu_torch/csrc/trace.cu", "aic_tpu/raytrace/pallas_trace.py:1140", city["k1"]),
         ("relight_pass", "aic_tpu_torch/csrc/relight.cu", "aic_tpu/light/pallas_relight.py:338",

@@ -57,14 +57,21 @@ def cities():
     return js, ts
 
 
+@pytest.fixture(scope="module")
+def city_state(cities):
+    """The port's snapshot of the full city on the CPU, taken once for
+    the module (the tests read it and never write into it)."""
+    return cities[1].snapshot(device="cpu")
+
+
 def test_city_equals_aic_tpu(cities):
     js, ts = cities
     assert ts.palette_len() == js.palette_len() == 226
     assert_spaces_equal(js, ts)
 
 
-def test_city_takes_k1_r32_and_wide_pages(cities):
-    st = cities[1].snapshot(device="cpu")
+def test_city_takes_k1_r32_and_wide_pages(city_state):
+    st = city_state
     assert tuple(st.contents.shape) == (96, 28, 96)
     assert int((st.tables.voxel_index >= 0).sum()) == 177
     assert trace_kernel.megakernel_fits(st)
@@ -72,7 +79,7 @@ def test_city_takes_k1_r32_and_wide_pages(cities):
     assert ctx.has_r32 and ctx.wide_pages
 
 
-def test_city_frame_matches_aic_tpu(cities):
+def test_city_frame_matches_aic_tpu(cities, city_state):
     """`main.default_camera`'s view of the full city at 48×32: the port
     through K1's plain version against `aic_tpu`'s XLA tracer."""
     js, ts = cities
@@ -84,14 +91,14 @@ def test_city_frame_matches_aic_tpu(cities):
     np.testing.assert_allclose(tcam.eye_to_world, jcam.eye_to_world)
     want_l, want_t = jax_render_hdr(js.snapshot(), jcam)
     before = trace_kernel.LAUNCHES
-    got_l, got_t, stats = render_hdr(ts.snapshot(device="cpu"), tcam, with_stats=True)
+    got_l, got_t, stats = render_hdr(city_state, tcam, with_stats=True)
     assert trace_kernel.LAUNCHES == before and not stats["unfinished"]
     assert float(got_l.max()) > 0.05
     np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), atol=PIXEL_ATOL)
     np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), atol=PIXEL_ATOL)
 
 
-def test_city_listed_phase_loop_matches_all_rays(cities, monkeypatch):
+def test_city_listed_phase_loop_matches_all_rays(cities, city_state, monkeypatch):
     """`main.default_camera`'s 48×32 view of the full city through the
     megakernel's listed phase loop equals the all-ray loop bit for bit
     (K1's plain version on the CPU; R32 octant rows, wide pages)."""
@@ -100,7 +107,7 @@ def test_city_listed_phase_loop_matches_all_rays(cities, monkeypatch):
     ts = cities[1]
     opts = GraphicsOptions(lighting_display="smoothstep", fog="none")
     o, d = torch_main.default_camera(ts, W, H, opts).pixel_rays(device="cpu")
-    (got, want), listed = frame_both_ways(ts.snapshot(device="cpu"), o.reshape(-1, 3), d.reshape(-1, 3), opts,
+    (got, want), listed = frame_both_ways(city_state, o.reshape(-1, 3), d.reshape(-1, 3), opts,
                                           monkeypatch)
     assert_bit_equal(got, want)
     assert listed[0] > 0

@@ -2,8 +2,8 @@
 universe.cursor, vui.widgets, Space.extract/absorb/distinct_blocks)
 against `aic_tpu`.
 
-Every template of `aic_tpu` but `menu` and `demo-city` (which
-tests/test_torch_city.py holds), and every exhibit's standalone space, is
+Every template of `aic_tpu` but `menu` (which tests/test_torch_vui.py
+holds) and `demo-city` (tests/test_torch_city.py), and every exhibit's standalone space, is
 built at its default size by each package's own content code: the
 spaces must be equal — contents, light and dirty marks after the fast
 light seed, the spawn point, the palette in the same order with each
@@ -84,9 +84,9 @@ def assert_spaces_equal(js, ts, snapshot=True, palette=True):
 
 
 def test_template_names_follow_aic_tpu():
-    """`aic_tpu`'s order, without `menu` (the voxel-UI pages, ROADMAP A9),
-    with the port's `plaza640` before `fail`."""
-    want = [n for n in jc.TEMPLATE_NAMES if n != "menu"]
+    """`aic_tpu`'s order, `menu` included, with the port's `plaza640`
+    before `fail`."""
+    want = list(jc.TEMPLATE_NAMES)
     want.insert(want.index("fail"), "plaza640")
     assert tc.TEMPLATE_NAMES == want
 
@@ -110,7 +110,7 @@ def test_fail_raises_in_both():
     with pytest.raises(RuntimeError, match="intentional"):
         tc.build_template_space("fail")
     with pytest.raises(KeyError):
-        tc.build_template_space("menu")
+        tc.build_template_space("no-such-template")
 
 
 @pytest.mark.parametrize("name", EXHIBITS)

@@ -687,3 +687,39 @@ def test_window_state_on_the_card_like_the_cpu(cuda_device):
     assert win.contents.shape[0] < st.contents.shape[0] and win.lower == ref.lower
     for k in ("contents", "light", "light_dirty", "cells"):
         assert torch.equal(getattr(win, k).cpu(), getattr(ref, k)), k
+
+
+def _session(device, w=256, h=144):
+    """A session on cornell-box 16 with its HUD at w x h on `device`."""
+    from aic_tpu_torch.apps.session import Session
+    from aic_tpu_torch.content import TemplateParameters, build_universe
+    from aic_tpu_torch.raytrace import Viewport
+
+    u = build_universe("cornell-box", TemplateParameters(size=16), device=device)
+    s = Session(u, viewport=Viewport(w, h), options=GraphicsOptions(lighting_display="smoothstep", fog="none"))
+    s.enable_ui()
+    s.maybe_step(0.0)
+    return s
+
+
+def test_session_frame_k1_launches_match_plain(cuda_device):
+    """Every K1 launch of a session frame, the world layer's and the UI
+    layer's, against the twin on its listed rays (chip_smoke's check:
+    28 fields, columns off the list untouched); the frame equals the
+    CPU session's within ±1 on ≥ 99.9% of pixels."""
+    s = _session(cuda_device)
+    records = chip_smoke.k1_frame_launches(lambda: s.render_with_ui())
+    assert len(records) >= 2  # both layers
+    rows = chip_smoke.check_k1_launches(records, "session test")  # exits non-zero on a disagreement
+    assert len(rows) == len(records)
+    got = s.render_with_ui().data
+    want = _session(torch.device("cpu")).render_with_ui().data
+    close = np.abs(got.astype(np.int32) - want.astype(np.int32)).max(-1) <= 1
+    assert close.mean() >= 0.999
+
+
+def test_encode_png_decodes_to_the_session_frame(cuda_device):
+    from aic_tpu_torch.raytrace import decode_png, encode_png
+
+    frame = _session(cuda_device).render_with_ui().data
+    np.testing.assert_array_equal(decode_png(encode_png(frame)), frame)

@@ -10,6 +10,7 @@ tolerance and `on_ground` equal, light within one packed step.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -64,6 +65,15 @@ def _placer(pkg, every=3):
     return Placer()
 
 
+@functools.lru_cache(maxsize=None)
+def _lit_world(period):
+    """`aic_tpu`'s relight of the world's snapshot, computed once per
+    period and shared by every `_universes` call of the module (a state
+    is immutable: each universe replaces it, never writes into it)."""
+    lit, _ = j_evaluate_light(_world("jax", period).snapshot())
+    return lit
+
+
 def _universes(period=2, behavior=True):
     """Both packages' universes over the same relit world state."""
     out = {}
@@ -75,7 +85,7 @@ def _universes(period=2, behavior=True):
         if behavior:
             u.add_behavior("world", _placer(pkg))
         out[pkg] = u
-    lit, _ = j_evaluate_light(out["jax"].states["world"])
+    lit = _lit_world(period)
     out["jax"].states["world"] = lit
     out["torch"].states["world"] = to_port(lit)
     return out["jax"], out["torch"]
@@ -319,9 +329,9 @@ def test_main_refuses_cuda_without_a_card(monkeypatch):
 
 
 def test_step_loop_modules_leave_out_jax():
-    """The step loop's modules, and the content, text, tools and widgets
-    modules that demo-city pulls in, import no JAX, not even through
-    `aic_tpu`."""
+    """The step loop's modules, the content, text, tools and widgets
+    modules that demo-city pulls in, and the session, voxel UI, save/load
+    and frontends, import no JAX, not even through `aic_tpu`."""
     import os
     import subprocess
     import sys
@@ -336,7 +346,12 @@ def test_step_loop_modules_leave_out_jax():
         "aic_tpu_torch.content.landscape, aic_tpu_torch.content.testing, aic_tpu_torch.content.fractal, "
         "aic_tpu_torch.content.linking, aic_tpu_torch.text, aic_tpu_torch.text.font, aic_tpu_torch.text.layout, "
         "aic_tpu_torch.text.sysfont, aic_tpu_torch.math.octant, aic_tpu_torch.math.chunking, "
-        "aic_tpu_torch.space.drawing, aic_tpu_torch.vui, aic_tpu_torch.vui.widgets; "
+        "aic_tpu_torch.space.drawing, aic_tpu_torch.vui, aic_tpu_torch.vui.widgets, aic_tpu_torch.vui.layout, "
+        "aic_tpu_torch.vui.hud, aic_tpu_torch.vui.page, aic_tpu_torch.vui.controller, aic_tpu_torch.vui.notification, "
+        "aic_tpu_torch.apps, aic_tpu_torch.apps.session, aic_tpu_torch.apps.settings, aic_tpu_torch.apps.server, "
+        "aic_tpu_torch.apps.terminal, aic_tpu_torch.apps.window, aic_tpu_torch.io, aic_tpu_torch.io.save, "
+        "aic_tpu_torch.io.vox, aic_tpu_torch.universe.sound, aic_tpu_torch.debug, aic_tpu_torch.logging, "
+        "aic_tpu_torch.main; "
         "from aic_tpu_torch.content import build_template_space, TemplateParameters; "
         "build_template_space('menger-sponge', TemplateParameters()); "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'aic_tpu.')) or m == 'aic_tpu']; "
