@@ -201,16 +201,17 @@ def body_row(universe, i: int) -> dict:
 
 
 def set_body_row(universe, i: int, **fields) -> None:
-    """Write fields of body `i` (any of velocity, yaw, pitch) with one
-    copy to the device; the scatter runs there. Velocity goes through
-    `Body.set_velocity`, which ignores a non-finite input."""
+    """Write fields of body `i` (any of position, velocity, yaw, pitch)
+    with one copy to the device; the scatter runs there. Velocity goes
+    through `Body.set_velocity`, which ignores a non-finite input; the
+    position is written as given (the record script's `Performance`)."""
     b = universe.bodies
-    names = [k for k in ("velocity", "yaw", "pitch") if k in fields]
+    names = [k for k in ("position", "velocity", "yaw", "pitch") if k in fields]
     host = np.concatenate([np.asarray(fields[k], np.float32).reshape(-1) for k in names])
     vals = torch.as_tensor(host).to(b.position.device)
     at = 0
     for k in names:
-        n = 3 if k == "velocity" else 1
+        n = 3 if k in ("position", "velocity") else 1
         col = getattr(b, k).clone()
         col[i] = vals[at : at + n] if n == 3 else vals[at]
         at += n

@@ -5,8 +5,13 @@ Builds a template's universe on a device, or opens a universe file
 back to it), relights it with `evaluate_light` (the dense passes where
 most of the world is dirty, as in a freshly built one), and then:
 
-  record     renders one frame to PNG (`--output frame.png`), or saves the
-             world as `.json` or `.vox` when the output names one
+  record     renders one frame to PNG (`--output frame.png`); with
+             `--frames N` an animated PNG of N frames, the universe
+             stepped between them and the camera orbiting the world or
+             following `--camera-script FILE.json`; or exports the world
+             when the output names `.gltf` (the textured mesh; with
+             `--frames N` an animated glTF of N stepped meshes), `.stl`
+             (the voxel-detail mesh), `.vox` or `.json` (the native save)
   print      prints one frame as 24-bit-colour half blocks
   headless   steps the universe for `--duration` simulated seconds at 60
              ticks a second without rendering
@@ -18,6 +23,10 @@ most of the world is dirty, as in a freshly built one), and then:
 
     python -m aic_tpu_torch.main --template atrium --graphics record \\
         --output frame.png --width 1920 --height 1080
+    python -m aic_tpu_torch.main --template atrium --graphics record \\
+        --frames 8 --camera-script flight.json --output flight.png
+    python -m aic_tpu_torch.main --template demo-city --graphics record \\
+        --output city.gltf
     python -m aic_tpu_torch.main --template demo-city --graphics serve \\
         --width 1920 --height 1080 --port 8080
     python -m aic_tpu_torch.main world.json --graphics print --device cpu
@@ -26,9 +35,10 @@ most of the world is dirty, as in a freshly built one), and then:
 
 `--device cuda` (the default) runs the relight, the step and the trace
 through the CUDA kernels and refuses to run without a card; `--device
-cpu` runs their plain PyTorch twins. Not ported yet: animated records
-(`--frames`, `--camera-script`), the `.gltf`/`.stl` exports (ROADMAP
-A14) and `.alliscubesjson` files (A9(c)).
+cpu` runs their plain PyTorch twins. The meshes and exports are host
+code (numpy and the native C++ in `native/`), made after the load
+relight and before any frame. Not ported yet: `.alliscubesjson` files
+(ROADMAP A9(c)).
 """
 
 from __future__ import annotations
@@ -105,6 +115,60 @@ def space_digest(space) -> str:
     return f"{'x'.join(map(str, space.bounds.size))} palette {space.palette_len()} crc {crc:08x}"
 
 
+def _record_universe(space, state, device):
+    """The universe an animated record steps: the world alone with its
+    relit state, as `aic_tpu`'s `main` builds it."""
+    from .universe import Universe
+
+    u = Universe(device=device)
+    u.insert_space("world", space)
+    u.states["world"] = state
+    return u
+
+
+#: Animated records run on a 30 fps clock (record.rs).
+RECORD_FPS = 30
+
+
+def record_frames(space, state, cam, n_frames, path, device, camera_script=None):
+    """Animated record (record.rs + record/script.rs): fixed-clock
+    universe stepping, a frame traced before each step, the camera
+    orbiting the world or following a camera script on the 30 fps
+    record clock; written as an animated PNG (`encode_apng`, 1000 // 30
+    ms a frame, looping). Returns the host-clock ms a frame took (its
+    trace, copied to the host, and its step)."""
+    from .raytrace import render
+    from .raytrace.render import encode_apng
+
+    u = _record_universe(space, state, device)
+    c = [lo + s / 2.0 for lo, s in zip(space.bounds.lower, space.bounds.size)]
+    radius = max(space.bounds.size) * 0.9
+    script = None
+    if camera_script:
+        from .apps.record_script import CameraScript
+
+        script = CameraScript.from_file(camera_script)
+    frames = []
+    t0 = time.perf_counter()
+    for i in range(n_frames):
+        ang = 2.0 * np.pi * i / n_frames
+        eye = (
+            c[0] + radius * np.cos(ang),
+            c[1] + space.bounds.size[1] * 0.4,
+            c[2] + radius * np.sin(ang),
+        )
+        if script is not None:
+            script.camera_at(i / RECORD_FPS, cam, eye, c)
+        else:
+            cam.look_at(eye, c)
+        frames.append(render(u.states["world"], cam).data)
+        u.step()
+    frame_ms = (time.perf_counter() - t0) * 1e3 / n_frames
+    with open(path, "wb") as f:
+        f.write(encode_apng(frames, 1000 // RECORD_FPS))
+    return frame_ms
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="aic-tpu-torch")
     p.add_argument(
@@ -128,6 +192,15 @@ def main(argv=None):
     p.add_argument("--height", type=int, default=80)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--output", default="frame.png")
+    p.add_argument("--frames", type=int, default=1, help="record mode: frames (animated PNG or glTF)")
+    p.add_argument(
+        "--camera-script",
+        default=None,
+        metavar="FILE.json",
+        help="record mode: keyframed camera path (record/script.rs JSON: "
+        '{"position": {"times": [...], "values": [[x,y,z], ...]}, '
+        '"look_direction": {...}})',
+    )
     p.add_argument("--duration", type=float, default=1.0, help="headless sim seconds")
     p.add_argument("--lighting", default="smoothstep")
     p.add_argument("--no-relight", action="store_true")
@@ -231,12 +304,31 @@ def main(argv=None):
         run_terminal_session(space, state, width=args.width, height=args.height, options=options, universe=u)
         return
     if args.graphics == "record" and not args.output.endswith(".png"):
-        # Non-image outputs: save the scene itself (the reference's
-        # `--output` export dispatch, all-is-cubes-desktop/src/record.rs).
+        # Non-image outputs: export the scene itself (the reference's
+        # `--output` export dispatch, all-is-cubes-desktop/src/record.rs +
+        # port/src/lib.rs ExportFormat). glTF goes through the textured
+        # mesh path; --frames N animates stepped snapshots.
         out = args.output
-        if out.endswith((".gltf", ".stl")):
-            raise SystemExit(f"{out}: the mesh exports are not ported yet (ROADMAP A14)")
-        if out.endswith(".vox"):
+        t0 = time.time()
+        if out.endswith(".gltf"):
+            from .io.export import export_gltf, export_gltf_animation
+            from .mesh import mesh_space_textured
+
+            if args.frames > 1:
+                stepped = _record_universe(space, state, device)
+                frames = []
+                for _ in range(args.frames):
+                    frames.append(mesh_space_textured(space))
+                    stepped.step()
+                export_gltf_animation(frames, out)
+            else:
+                export_gltf(mesh_space_textured(space), out)
+        elif out.endswith(".stl"):
+            from .io.export import export_stl
+            from .mesh import mesh_space_voxel_detail
+
+            export_stl(mesh_space_voxel_detail(space), out)
+        elif out.endswith(".vox"):
             from .io.vox import export_vox
 
             export_vox(space, out)
@@ -247,10 +339,14 @@ def main(argv=None):
             saved = Universe(device=device)
             saved.insert_space("world", space)
             save_universe(saved, out)
-        print(f"wrote {out}", file=sys.stderr)
+        print(f"wrote {out} in {time.time() - t0:.3f}s", file=sys.stderr)
         return
 
     cam = default_camera(space, args.width, args.height, options)
+    if args.graphics == "record" and args.frames > 1:
+        frame_ms = record_frames(space, state, cam, args.frames, args.output, device, args.camera_script)
+        print(f"wrote {args.output} ({args.frames} frames, {frame_ms:.1f} ms a frame)", file=sys.stderr)
+        return
     t0 = time.time()
     r = render(state, cam)
     print(f"[render] {args.width}x{args.height} in {time.time() - t0:.1f}s", file=sys.stderr)

@@ -328,34 +328,61 @@ def render_scaled(state: SpaceState, camera: Camera, scale: float) -> Rendering:
     return Rendering(vp.width, vp.height, data, r.flaws)
 
 
-def encode_png(data: np.ndarray) -> bytes:
-    """An RGBA (u8[H,W,4]) or RGB (u8[H,W,3]) image as PNG bytes, in
-    memory (zlib level 6 + struct; no imaging library)."""
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+
+def _png_image(data: np.ndarray) -> tuple[bytes, bytes]:
+    """The IHDR body and the zlib stream (level 6, every row filtered
+    with type 0) of an RGBA or RGB image."""
     data = np.ascontiguousarray(data, np.uint8)
     h, w, c = data.shape
     raw = np.concatenate([np.zeros((h, 1), np.uint8), data.reshape(h, w * c)], axis=1).tobytes()
-
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return (
-            struct.pack(">I", len(body))
-            + kind
-            + body
-            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
-        )
-
     color_type = {4: 6, 3: 2}[c]
-    return (
-        b"\x89PNG\r\n\x1a\n"
-        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
-        + chunk(b"IDAT", zlib.compress(raw, 6))
-        + chunk(b"IEND", b"")
-    )
+    return struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0), zlib.compress(raw, 6)
+
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def encode_png(data: np.ndarray) -> bytes:
+    """An RGBA (u8[H,W,4]) or RGB (u8[H,W,3]) image as PNG bytes, in
+    memory (zlib level 6 + struct; no imaging library)."""
+    ihdr, idat = _png_image(data)
+    return PNG_SIGNATURE + _png_chunk(b"IHDR", ihdr) + _png_chunk(b"IDAT", idat) + _png_chunk(b"IEND", b"")
+
+
+def encode_apng(frames, duration_ms: int) -> bytes:
+    """Images of one shape as an animated PNG (APNG: `acTL`, a `fcTL`
+    before each frame, the first frame in `IDAT` as the default image,
+    the others in `fdAT`), each shown `duration_ms`, whole (no offset,
+    dispose none, blend source). A recording loops forever (`acTL`'s
+    play count 0)."""
+    frames = list(frames)
+    h, w = frames[0].shape[:2]
+    out = [PNG_SIGNATURE, None, _png_chunk(b"acTL", struct.pack(">II", len(frames), 0))]
+    seq = 0
+    for i, frame in enumerate(frames):
+        if frame.shape[:2] != (h, w):
+            raise ValueError(f"frame {i} is {frame.shape[:2]}, frame 0 {(h, w)}")
+        ihdr, data = _png_image(frame)
+        if i == 0:
+            out[1] = _png_chunk(b"IHDR", ihdr)
+        out.append(_png_chunk(b"fcTL", struct.pack(">IIIIIHHBB", seq, w, h, 0, 0, duration_ms, 1000, 0, 0)))
+        seq += 1
+        if i == 0:
+            out.append(_png_chunk(b"IDAT", data))
+        else:
+            out.append(_png_chunk(b"fdAT", struct.pack(">I", seq) + data))
+            seq += 1
+    out.append(_png_chunk(b"IEND", b""))
+    return b"".join(out)
 
 
 def decode_png(png: bytes) -> np.ndarray:
     """The image of a PNG that `encode_png` wrote (8-bit RGB or RGBA, no
     interlace, every row filtered with type 0), as u8[H,W,C]."""
-    if png[:8] != b"\x89PNG\r\n\x1a\n":
+    if png[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG")
     pos, idat = 8, []
     while pos < len(png):

@@ -4,11 +4,10 @@ Port of `aic_tpu/space/space.py`. The host side (palette dedup, block
 evaluation, `set`/`fill`, the fast light seed, and what transactions
 and the step loop read: `palette_len`, `block_at`, `index_at`, the
 palette `epoch`, `reevaluate_palette`, `distinct_blocks`, `extract`)
-is copied unchanged; `snapshot(device=...)` builds the same numpy
-tables and packed cells and hands them over with `torch.as_tensor`, and
-`absorb` copies a state's tensors back. Left out until a later slice:
-the edit journal (`drain_edits`), whose reader in `aic_tpu` is the mesh
-updater.
+and the edit journal (`drain_edits`, read by the chunked mesher) is
+copied unchanged; `snapshot(device=...)` builds the same numpy tables
+and packed cells and hands them over with `torch.as_tensor`, and
+`absorb` copies a state's tensors back.
 """
 
 from __future__ import annotations
@@ -63,6 +62,10 @@ class Space:
         #: Bumped on palette changes (a new or recycled entry, GC,
         #: re-evaluation): the step loop's tick-closure cache keys on it.
         self.epoch = 0
+        #: Edit journal for incremental consumers (`mesh.ChunkedSpaceMesh`):
+        #: relative cubes edited since the last drain, or "all" after a
+        #: bulk edit. The device tick's palette remap writes no entry.
+        self._edit_log: object = set()
         if fill is not None and fill is not AIR:
             self.fill(bounds, fill)
 
@@ -152,7 +155,21 @@ class Space:
             return False
         self.contents[rel] = idx
         self._mark_light_dirty_around(rel)
+        self._log_edit(rel)
         return True
+
+    def _log_edit(self, rel):
+        if isinstance(self._edit_log, set):
+            self._edit_log.add(rel)
+            if len(self._edit_log) > 4096:
+                self._edit_log = "all"
+
+    def drain_edits(self):
+        """Take the set of edited cubes (relative coordinates) or "all"
+        (the SpaceChange listener's drain)."""
+        out = self._edit_log
+        self._edit_log = set()
+        return out
 
     def fill(self, region: GridAab, block_or_fn, clip: bool = True) -> None:
         """space.rs:1390 fill/fill_uniform (host path); `clip` intersects
@@ -171,6 +188,7 @@ class Space:
                 if b is not None:
                     self.contents[self._rel(cube)] = self.ensure_block(b)
         self.light_dirty[sl] = 255
+        self._edit_log = "all"  # bulk edit: everything is dirty
         # Also dirty the one-cube border around the region.
         border = region.expand(1).intersection(self.bounds)
         self.light_dirty[border.to_slices(self.bounds)] = 255

@@ -160,6 +160,7 @@ class SpaceTransaction:
             rel = space._rel(cube)
             space.contents[rel] = idx
             space._mark_light_dirty_around(rel)
+            space._log_edit(rel)
             positions.append(rel)
             new_idx.append(idx)
         if state is None:

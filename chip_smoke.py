@@ -7,7 +7,8 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
 
 1. device  — the card's name; `nvidia-smi` name and power limit.
 2. build   — nvcc builds the three kernels from `aic_tpu_torch/csrc/`,
-   one process per source, all started together.
+   one process per source, all started together, and g++ the native
+   mesher and reference relight from `aic_tpu_torch/native/`.
 3. kernels — each CUDA kernel against its plain PyTorch twin on the
    card: the relight pass (K2) in both variants on a small mixed scene,
    cornell-box 16, the atrium and `plaza640` (two launches bit-equal,
@@ -116,11 +117,31 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    reopened by `python3 -m aic_tpu_torch.main FILE --graphics print` and
    `--graphics terminal` (no tty) as subprocesses: both exit 0 and load
    the saved space.
-10. the kernels line (JSON; K1's row from demo-city's frame, its phases'
+10. record — `main --graphics record` as a user runs it, each command a
+   subprocess on the card whose launch counters are added to the
+   phase's (`run_main`): demo-city (seed 0, size 96) to `.gltf` (the
+   accessor counts against an in-process `mesh_space_textured` of the
+   same world, the atlas decoded equal to its texture, bytes and
+   seconds); the session phase's demo-city stepped 60 ticks (a placing
+   behavior every 10) with a `ChunkedSpaceMesh` updated each tick
+   (budget 8): the chunks re-meshed a tick, the cubes and chunks the
+   device tick's remap changed with no journal entry, and after a full
+   update every other chunk equal to a fresh chunked mesh's; a
+   `SessionAudio` over the session's steps and these (a scripted tool
+   use where they raise no fluff), written as WAV: sounds and PCM peak;
+   the atrium at 1920x1080 to `.stl` (84 + 50 T bytes, T the
+   voxel-detail triangles; the file deleted), to an 8-frame APNG along
+   a two-keyframe camera script (8 `fcTL` chunks; frame 0 equal to an
+   in-process render at the script's t = 0 camera; ms a frame) and to
+   a 4-frame animated `.gltf` (4 frame nodes, 4 scale channels); the
+   C++ reference relight (`ref_relight_state` on light_bench and
+   cornell-box 32, one run each) on the host's CPU beside the card's `evaluate_light_dense` of the same
+   scenes.
+11. the kernels line (JSON; K1's row from demo-city's frame, its phases'
    launches summed; K2's listed mode as `relight_batch`, from the atrium
    step's batch that walked the most rows; launches summed over every
-   main path, demo-city's, the render phase's and the session's
-   included), the `nvidia-smi` line, and the last line
+   main path, demo-city's, the render phase's, the session's and the
+   record phase's included), the `nvidia-smi` line, and the last line
    {"ok": true, "device": {...}}.
 
 Needs CUDA and the `aic_tpu_torch` package beside this file; imports no
@@ -2389,7 +2410,319 @@ def session_world(dev, smi, reset_counts, read_counts) -> dict:
         size = os.path.getsize(path)
     phase("session", f"saved the stepped demo-city through FileWhence in {save_s:.3f} s ({size} bytes); main "
           f"reopened it and printed a frame, both modes started together ({', '.join(cli)}): world {want}")
-    return dict(counts=counts, k1=k1)
+    return dict(counts=counts, k1=k1, session=session)
+
+
+#: The record phase: `main --graphics record` run as a user runs it, one
+#: subprocess a command, each printing its launch counters at exit.
+COUNTED_MAIN = (
+    "import json, runpy, sys\n"
+    "sys.argv = ['aic_tpu_torch.main'] + json.loads(sys.argv[1])\n"
+    "try:\n"
+    "    runpy.run_module('aic_tpu_torch.main', run_name='__main__', alter_sys=True)\n"
+    "finally:\n"
+    "    from aic_tpu_torch.light import relight_kernel as rk\n"
+    "    from aic_tpu_torch.raytrace import trace_kernel as tk, trace_kernel_v1 as v1\n"
+    "    print('LAUNCHES ' + json.dumps({'relight_pass': rk.LAUNCHES, 'relight_pass_dyn': rk.LAUNCHES_DYN,\n"
+    "          'relight_batch': rk.LAUNCHES_LISTED, 'trace_megakernel': tk.LAUNCHES, 'trace_v1': v1.LAUNCHES}),\n"
+    "          file=sys.stderr)\n"
+)
+RECORD_W, RECORD_H = 1920, 1080
+RECORD_CITY_SIZE = 96
+#: Demo-city stepped with a chunked mesh updated every tick.
+MESH_TICKS = 60
+MESH_BUDGET = 8
+APNG_FRAMES = 8
+GLTF_FRAMES = 4
+
+
+def run_main(args: list, label: str) -> tuple[dict, float, str]:
+    """`python3 -m aic_tpu_torch.main ARGS` as a subprocess on the card
+    (through COUNTED_MAIN): (its launch counters, host-clock seconds,
+    stderr)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", COUNTED_MAIN, json.dumps(args)], cwd=HERE,
+                          stdin=subprocess.DEVNULL, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"record {label}: main exited {proc.returncode}: {proc.stderr[-3000:]}")
+    line = [ln for ln in proc.stderr.splitlines() if ln.startswith("LAUNCHES ")]
+    if not line:
+        fail(f"record {label}: no launch counters in main's output: {proc.stderr[-2000:]}")
+    return json.loads(line[-1][len("LAUNCHES "):]), secs, proc.stderr
+
+
+def _wrote_line(err: str) -> str:
+    """main's load relight and output lines."""
+    return "; ".join(ln for ln in err.splitlines() if ln.startswith(("wrote", "[light]")))
+
+
+def png_chunks(data: bytes) -> list:
+    """(kind, body) of each chunk of a PNG."""
+    import struct
+
+    pos, out = 8, []
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos : pos + 8])
+        out.append((kind, data[pos + 8 : pos + 8 + n]))
+        pos += 12 + n
+    return out
+
+
+def gltf_parts(path):
+    """(document, buffer bytes, decoded images) of a glTF with embedded
+    data URIs."""
+    import base64
+
+    from aic_tpu_torch.raytrace import decode_png
+
+    with open(path) as f:
+        doc = json.load(f)
+    buffers = [base64.b64decode(b["uri"].split(",", 1)[1]) for b in doc["buffers"]]
+    images = [decode_png(base64.b64decode(im["uri"].split(",", 1)[1])) for im in doc.get("images", [])]
+    return doc, buffers, images
+
+
+def record_world(dev, smi, reset_counts, read_counts, session) -> dict:
+    """The record and export path (`main --graphics record`) and what it
+    stands on, the counters set to 0 before and read after (the
+    subprocesses' counters added):
+
+    demo-city (seed 0, size 96) to `.gltf` as a subprocess, the file
+    parsed and held to an in-process textured mesh of the same world;
+    demo-city stepped MESH_TICKS ticks (a placing behavior every 10)
+    with a `ChunkedSpaceMesh` updated every tick (budget MESH_BUDGET),
+    the chunks re-meshed a tick and the chunks the device tick's remap
+    changed with no journal entry, then every untouched chunk against a
+    fresh chunked mesh; the atrium (1920x1080) to `.stl` (its size from
+    the voxel-detail mesh), to an APNG of APNG_FRAMES frames along a
+    two-keyframe camera script (the first frame against an in-process
+    render) and to a glTF of GLTF_FRAMES stepped frames; a
+    `SessionAudio` over the session phase's steps and a scripted tool
+    use, written as WAV; the C++ reference relight on light_bench and
+    cornell-box 32 beside the card's `evaluate_light_dense`."""
+    import tempfile
+
+    import torch
+    from aic_tpu_torch.apps.audio import SessionAudio, WavFileSink
+    from aic_tpu_torch.apps.record_script import CameraScript
+    from aic_tpu_torch.apps.session import STEP_DT, body_row
+    from aic_tpu_torch.content import TemplateParameters, atrium, build_template_space, cornell_box
+    from aic_tpu_torch.content.testing import light_bench_space
+    from aic_tpu_torch.light import dense
+    from aic_tpu_torch.light.update import evaluate_light
+    from aic_tpu_torch.main import default_camera
+    from aic_tpu_torch.mesh import ChunkedSpaceMesh, mesh_space_textured, mesh_space_voxel_detail
+    from aic_tpu_torch.native import ref_relight_state
+    from aic_tpu_torch.raytrace import GraphicsOptions, decode_png, render
+    from aic_tpu_torch.universe.cursor import click, cursor_raycast
+
+    reset_counts()
+    sub = {}
+    city_args = ["--template", "demo-city", "--size", str(RECORD_CITY_SIZE), "--graphics", "record"]
+    with tempfile.TemporaryDirectory() as tmp:
+        # demo-city to glTF, a subprocess on the card.
+        path = os.path.join(tmp, "city.gltf")
+        sub["city.gltf"], secs, err = run_main(city_args + ["--output", path], "demo-city gltf")
+        size = os.path.getsize(path)
+        doc, buffers, images = gltf_parts(path)
+        mesh, mesh_s = synced(lambda: mesh_space_textured(build_template_space(
+            "demo-city", TemplateParameters(seed=0, size=RECORD_CITY_SIZE))))
+        prim = doc["meshes"][0]["primitives"][0]
+        acc = doc["accessors"]
+        counts_in_file = {k: acc[i]["count"] for k, i in prim["attributes"].items()}
+        if set(counts_in_file.values()) != {len(mesh.positions)} or len(counts_in_file) != 3:
+            fail(f"record demo-city gltf: attribute counts {counts_in_file}, the mesh has {len(mesh.positions)} "
+                 f"vertices")
+        if acc[prim["indices"]]["count"] != 3 * mesh.triangle_count:
+            fail(f"record demo-city gltf: {acc[prim['indices']]['count']} indices, the mesh has "
+                 f"{mesh.triangle_count} triangles")
+        if len(images) != 1 or images[0].shape != mesh.texture.shape or not np.array_equal(images[0], mesh.texture):
+            fail(f"record demo-city gltf: the atlas decodes to {[im.shape for im in images]}, not the mesh's "
+                 f"{mesh.texture.shape}")
+        if sum(len(b) for b in buffers) != doc["buffers"][0]["byteLength"]:
+            fail("record demo-city gltf: the buffer's length is not the stated one")
+        os.remove(path)
+        phase("record", f"demo-city size {RECORD_CITY_SIZE} -> city.gltf ({smi}): main as a subprocess {secs:.3f} s "
+              f"({_wrote_line(err)!r}), {size} bytes ({size / 2 ** 20:.1f} MiB); {mesh.triangle_count} triangles, "
+              f"{len(mesh.positions)} vertices, atlas {mesh.texture.shape[1]}x{mesh.texture.shape[0]} decoded equal "
+              f"to an in-process mesh_space_textured ({mesh_s:.3f} s, host); launches {sub['city.gltf']}")
+
+        # demo-city (the session's universe) stepped with a chunked mesh
+        # updated every tick, its audio pumped every tick.
+        u = session.universe
+        sp = u.spaces["world"]
+        wav = os.path.join(HERE, "aic_tpu_torch", "_build", "session.wav")
+        audio = SessionAudio(session, WavFileSink(wav))
+        sounds = audio.pump(0.0)  # the session phase's steps
+        u.add_behavior("world", make_placer(free_cubes(sp, 3), PLACE_EVERY))
+        journal = []
+        real_drain = sp.drain_edits
+
+        def drain():
+            out = real_drain()
+            journal.append(out)
+            return out
+
+        sp.drain_edits = drain
+        csm = ChunkedSpaceMesh(sp)
+        cs = csm.chunk_size
+        before_counts = read_counts()
+        view = body_row(u, session.character.body_index)["position"]
+        remeshed, remap_chunks, remap_cubes, step_s, update_s, scripted = [], set(), 0, [], [], None
+        for i in range(MESH_TICKS):
+            before = sp.contents.copy()
+            _, s = synced(u.step)
+            step_s.append(s)
+            if i == MESH_TICKS // 2 and sounds == 0:
+                # A scripted tool use: the player removes the block under it.
+                session.inventory.selected = 1
+                pos = body_row(u, session.character.body_index)["position"]
+                cur = cursor_raycast(sp, pos + np.array([0.0, 0.5, 0.0]), np.array([0.0, -1.0, 0.0]))
+                scripted = (cur.cube if cur is not None else None, click(u, session.character, cur))
+            sounds += audio.pump((i + 1) * STEP_DT)
+            changed = np.argwhere(before != sp.contents)
+            info, s = synced(lambda: csm.update(view, budget_chunks=MESH_BUDGET))
+            update_s.append(s)
+            remeshed.append(info.chunks_updated)
+            edits = journal[-1]
+            if edits != "all":
+                unjournaled = [tuple(int(v) for v in c) for c in changed if tuple(int(v) for v in c) not in edits]
+                remap_cubes += len(unjournaled)
+                for c in unjournaled:
+                    remap_chunks |= csm.chunks_of_cube(c)
+        sp.drain_edits = real_drain
+        stepped_counts = {k: v - before_counts[k] for k, v in read_counts().items()}
+        journaled = sum(len(e) if e != "all" else 0 for e in journal[1:])
+        while csm.update(view, budget_chunks=MESH_BUDGET).chunks_remaining:
+            pass
+        fresh = ChunkedSpaceMesh(sp)
+        fresh.update(view, budget_chunks=10 ** 6)
+        stale = []
+        for c, m in fresh.meshes.items():
+            same = all(np.array_equal(getattr(m, k), getattr(csm.meshes[c], k))
+                       for k in ("positions", "colors", "indices"))
+            if c in remap_chunks:
+                stale += [] if same else [c]
+            elif not same or m.opaque_range != csm.meshes[c].opaque_range:
+                fail(f"record demo-city: chunk {c}, untouched by the remap, differs from a fresh chunked mesh")
+        phase("record", f"demo-city stepped {MESH_TICKS} ticks with a ChunkedSpaceMesh ({len(fresh.meshes)} chunks "
+              f"of {cs}^3) updated each tick, budget {MESH_BUDGET} ({smi}): chunks re-meshed a tick {remeshed} "
+              f"(mean {float(np.mean(remeshed)):.2f}); journaled cubes {journaled}; cubes the device tick's remap "
+              f"changed with no journal entry {remap_cubes}, in {len(remap_chunks)} chunks (with neighbours), of "
+              f"which {len(stale)} differ from a fresh mesh after the full update; every other chunk equals the "
+              f"fresh mesh's; step median {float(np.median(step_s)) * 1e3:.3f} ms, chunked update median "
+              f"{float(np.median(update_s)) * 1e3:.3f} ms, max {max(update_s) * 1e3:.3f} ms (host); launches "
+              f"{stepped_counts}")
+        audio.flush()
+        pcm = audio.mixer.take()
+        peak = float(np.abs(pcm).max()) if len(pcm) else 0.0
+        if sounds == 0 or peak <= 0.0:
+            fail(f"record audio: {sounds} sounds mixed, PCM peak {peak}")
+        phase("record", f"audio ({smi}): a SessionAudio over the session phase's steps and these {MESH_TICKS} (scripted "
+              f"tool use, cube and edit: {scripted}): {sounds} sounds mixed, {len(pcm)} stereo samples, PCM peak "
+              f"{peak:.4f}; {os.path.getsize(wav)} bytes of WAV")
+
+        # The atrium: STL, an APNG along a camera script, an animated glTF.
+        space = atrium()
+        atrium_args = ["--template", "atrium", "--graphics", "record", "--width", str(RECORD_W),
+                       "--height", str(RECORD_H)]
+        path = os.path.join(tmp, "atrium.stl")
+        sub["atrium.stl"], secs, err = run_main(atrium_args + ["--output", path], "atrium stl")
+        tris, mesh_s = synced(lambda: mesh_space_voxel_detail(space).triangle_count)
+        size = os.path.getsize(path)
+        with open(path, "rb") as f:
+            head = f.read(84)
+        if size != 84 + 50 * tris or int.from_bytes(head[80:84], "little") != tris:
+            fail(f"record atrium stl: {size} bytes, not 84 + 50 * {tris}")
+        os.remove(path)
+        phase("record", f"atrium -> atrium.stl ({smi}): main as a subprocess {secs:.3f} s ({_wrote_line(err)!r}); "
+              f"{size} bytes = 84 + 50 * {tris} voxel-detail triangles (in-process mesh {mesh_s:.3f} s, host); "
+              f"deleted; launches {sub['atrium.stl']}")
+
+        lo = np.asarray(space.bounds.lower, float)
+        ext = np.asarray(space.bounds.size, float)
+        center = lo + ext / 2
+        eyes = [lo + ext * np.array([0.5, 0.75, 0.9]), lo + ext * np.array([0.25, 0.55, 0.95])]
+        script = {"position": {"times": [0.0, APNG_FRAMES / 30.0], "values": [e.tolist() for e in eyes]},
+                  "look_direction": {"times": [0.0, APNG_FRAMES / 30.0],
+                                     "values": [(center - e).tolist() for e in eyes]}}
+        script_path = os.path.join(tmp, "flight.json")
+        with open(script_path, "w") as f:
+            json.dump(script, f)
+        path = os.path.join(tmp, "atrium.png")
+        sub["atrium.png"], secs, err = run_main(atrium_args + ["--frames", str(APNG_FRAMES), "--camera-script",
+                                                               script_path, "--output", path], "atrium apng")
+        with open(path, "rb") as f:
+            data = f.read()
+        chunks = png_chunks(data)
+        n_fctl = sum(1 for k, _ in chunks if k == b"fcTL")
+        if n_fctl != APNG_FRAMES or sum(1 for k, _ in chunks if k == b"fdAT") == 0:
+            fail(f"record atrium apng: {n_fctl} fcTL chunks, not {APNG_FRAMES}")
+        first = decode_png(data)
+        # The first frame: the relit atrium at the script's t = 0 camera.
+        state = space.snapshot(device=dev)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", dense.OverrelaxFellBack)
+            state, _ = evaluate_light(state, batch_size=1024, max_rounds=5000)
+        for w in caught:
+            if not issubclass(w.category, dense.OverrelaxFellBack):
+                warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
+        cam = default_camera(space, RECORD_W, RECORD_H, GraphicsOptions(lighting_display="smoothstep", fog="none"))
+        CameraScript.from_dict(script).camera_at(0.0, cam, eyes[0], center)
+        want, frame_s = synced(lambda: render(state, cam).data)
+        check_image(first, (RECORD_H, RECORD_W, 4), "record atrium apng frame 0")
+        diff = int((first != want).any(-1).sum())
+        if diff:
+            fail(f"record atrium apng: the first frame differs from an in-process render in {diff} pixels")
+        phase("record", f"atrium -> atrium.png, {APNG_FRAMES} frames at {RECORD_W}x{RECORD_H} along a two-keyframe "
+              f"script ({smi}): main as a subprocess {secs:.3f} s ({_wrote_line(err)!r}; a frame: trace + step); "
+              f"{len(data)} bytes, {n_fctl} fcTL chunks; frame 0 equals an in-process render at the script's t = 0 "
+              f"camera ({frame_s * 1e3:.1f} ms); launches {sub['atrium.png']}")
+        del state
+        os.remove(path)
+
+        path = os.path.join(tmp, "atrium.gltf")
+        sub["atrium.gltf"], secs, err = run_main(atrium_args + ["--frames", str(GLTF_FRAMES), "--output", path],
+                                                 "atrium animated gltf")
+        doc, _, images = gltf_parts(path)
+        channels = doc["animations"][0]["channels"]
+        frames = [n for n in doc["nodes"] if n.get("name", "").startswith("space.frame")]
+        scale = [c for c in channels if c["target"]["path"] == "scale"]
+        if len(frames) != GLTF_FRAMES or len(scale) != GLTF_FRAMES or len(images) != GLTF_FRAMES:
+            fail(f"record atrium gltf: {len(frames)} frame nodes, {len(scale)} scale channels, {len(images)} "
+                 f"atlases, not {GLTF_FRAMES}")
+        phase("record", f"atrium -> atrium.gltf, {GLTF_FRAMES} stepped frames ({smi}): main as a subprocess "
+              f"{secs:.3f} s ({_wrote_line(err)!r}), {os.path.getsize(path)} bytes; {len(frames)} frame nodes, "
+              f"{len(scale)} scale channels; launches {sub['atrium.gltf']}")
+
+    counts = read_counts()
+    for k in counts:
+        counts[k] += sum(c[k] for c in sub.values())
+    for name in ("relight_pass", "relight_pass_dyn", "relight_batch", "trace_megakernel"):
+        if counts[name] <= 0:
+            fail(f"record main path: {name} was not launched: {counts}")
+    phase("record", f"launches (in process and the subprocesses) {counts}")
+
+    # The C++ reference relight on this host's CPU, as bench.py runs it,
+    # beside the card's dense relight of the same scenes.
+    nproc = os.cpu_count()
+    ref = {}
+    for name, make in (("light_bench", light_bench_space), ("cornell32", lambda: cornell_box(32))):
+        reset_counts()
+        st = make().snapshot(device=dev)
+        secs, updates = ref_relight_state(st)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", dense.OverrelaxFellBack)
+            dense.evaluate_light_dense(st)  # warm
+            (lit, passes), card_s = synced(lambda: dense.evaluate_light_dense(st))
+        fell = any(issubclass(w.category, dense.OverrelaxFellBack) for w in caught)
+        ref[name] = (secs, updates, card_s, passes)
+        phase("record", f"reference relight {name} {tuple(st.contents.shape)}: C++ on the host CPU ({nproc} cores, "
+              f"OpenMP) {secs:.3f} s, {updates} cube updates; the card's evaluate_light_dense ({smi}) "
+              f"{card_s * 1e3:.3f} ms, {passes} passes (fall-back to w = 1: {fell}); launches (both relights) "
+              f"{read_counts()}")
+    return dict(counts=counts, ref=ref)
 
 
 def main() -> None:
@@ -2446,6 +2779,13 @@ def main() -> None:
         for n, info in kernels.BUILD_INFO.items()
     }
     phase("build", f"{' + '.join(names)} built in {time.perf_counter() - t0:.1f} s; ptxas: {regs}")
+    from aic_tpu_torch import native
+
+    t0 = time.perf_counter()
+    for name in native.CXX_FLAGS:
+        native.load(name)
+    phase("build", f"native {' + '.join(native.CXX_FLAGS)} (g++) built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # 3. kernels against their plain twins
     pkg = (block, GridAab, Space, Sky, SpacePhysics)
@@ -2610,10 +2950,15 @@ def main() -> None:
     # 9. the interactive session: demo-city with its HUD, served.
     session = session_world(dev, smi, reset_counts, read_counts)
 
+    # 10. the record and export path: glTF, STL, APNG, the chunked mesh,
+    # audio and the reference relight.
+    recorded = record_world(dev, smi, reset_counts, read_counts, session.pop("session"))
+
     counts = {k: atrium_counts[k] + plaza_counts[k] + city["counts"][k] + rendered["counts"][k]
-              + session["counts"][k] for k in atrium_counts}
+              + session["counts"][k] + recorded["counts"][k] for k in atrium_counts}
     counts["relight_batch"] = (sum(st["counts"]["relight_batch"] for st in steps.values())
-                               + city["counts"]["relight_batch"] + session["counts"]["relight_batch"])
+                               + city["counts"]["relight_batch"] + session["counts"]["relight_batch"]
+                               + recorded["counts"]["relight_batch"])
     rows = [
         ("trace_megakernel", "aic_tpu_torch/csrc/trace.cu", "aic_tpu/raytrace/pallas_trace.py:1140", city["k1"]),
         ("relight_pass", "aic_tpu_torch/csrc/relight.cu", "aic_tpu/light/pallas_relight.py:338",

@@ -723,3 +723,41 @@ def test_encode_png_decodes_to_the_session_frame(cuda_device):
 
     frame = _session(cuda_device).render_with_ui().data
     np.testing.assert_array_equal(decode_png(encode_png(frame)), frame)
+
+
+def test_ref_relight_of_a_card_state_equals_its_cpu_copy(cuda_device):
+    """`ref_relight_state` copies a card state's tables to the host: the
+    light and update count equal those of the same state on the CPU."""
+    from aic_tpu_torch.native import ref_relight_state
+
+    space = cornell_box(8)
+    _, n_card, light_card = ref_relight_state(space.snapshot(device=cuda_device), return_light=True)
+    _, n_cpu, light_cpu = ref_relight_state(space.snapshot(device="cpu"), return_light=True)
+    assert n_card == n_cpu > 0
+    np.testing.assert_array_equal(light_card, light_cpu)
+
+
+def test_record_frames_take_the_kernels(cuda_device, tmp_path):
+    """An animated record on the card: the load relight launches K2, each
+    frame is traced by the megakernel (`render.TRACES`, K1's `LAUNCHES`),
+    and the APNG holds every frame."""
+    import importlib
+
+    from aic_tpu_torch.light.update import evaluate_light
+    from aic_tpu_torch.main import record_frames
+    from aic_tpu_torch.raytrace import decode_png
+
+    R = importlib.import_module("aic_tpu_torch.raytrace.render")
+    space = cornell_box(16)
+    before = (relight_kernel.LAUNCHES, relight_kernel.LAUNCHES_DYN)
+    state, _ = evaluate_light(space.snapshot(device=cuda_device), batch_size=1024, max_rounds=5000)
+    assert relight_kernel.LAUNCHES > before[0] and relight_kernel.LAUNCHES_DYN > before[1]
+    cam = default_camera(space, 96, 64, GraphicsOptions(lighting_display="smoothstep", fog="none"))
+    traces, launches = dict(R.TRACES), trace_kernel.LAUNCHES
+    path = tmp_path / "r.png"
+    record_frames(space, state, cam, 3, str(path), cuda_device)
+    assert R.TRACES["megakernel"] - traces["megakernel"] == 3
+    assert trace_kernel.LAUNCHES - launches >= 3
+    data = path.read_bytes()
+    assert data.count(b"fcTL") == 3
+    assert decode_png(data).shape == (64, 96, 4)

@@ -330,8 +330,9 @@ def test_main_refuses_cuda_without_a_card(monkeypatch):
 
 def test_step_loop_modules_leave_out_jax():
     """The step loop's modules, the content, text, tools and widgets
-    modules that demo-city pulls in, and the session, voxel UI, save/load
-    and frontends, import no JAX, not even through `aic_tpu`."""
+    modules that demo-city pulls in, the session, voxel UI, save/load
+    and frontends, and the mesher, exports, record script and audio,
+    import no JAX, not even through `aic_tpu`."""
     import os
     import subprocess
     import sys
@@ -351,7 +352,9 @@ def test_step_loop_modules_leave_out_jax():
         "aic_tpu_torch.apps, aic_tpu_torch.apps.session, aic_tpu_torch.apps.settings, aic_tpu_torch.apps.server, "
         "aic_tpu_torch.apps.terminal, aic_tpu_torch.apps.window, aic_tpu_torch.io, aic_tpu_torch.io.save, "
         "aic_tpu_torch.io.vox, aic_tpu_torch.universe.sound, aic_tpu_torch.debug, aic_tpu_torch.logging, "
-        "aic_tpu_torch.main; "
+        "aic_tpu_torch.main, aic_tpu_torch.mesh, aic_tpu_torch.mesh.mesher, aic_tpu_torch.mesh.atlas, "
+        "aic_tpu_torch.mesh.dynamic, aic_tpu_torch.native, aic_tpu_torch.io.export, "
+        "aic_tpu_torch.apps.record_script, aic_tpu_torch.apps.audio; "
         "from aic_tpu_torch.content import build_template_space, TemplateParameters; "
         "build_template_space('menger-sponge', TemplateParameters()); "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'aic_tpu.')) or m == 'aic_tpu']; "
