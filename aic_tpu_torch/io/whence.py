@@ -10,26 +10,14 @@ carry a `FileWhence` that saves back to the same path in the same format
 (the desktop's save-to-origin flow, all-is-cubes-desktop/src/startup.rs:177).
 
 Format dispatch is by extension, matching the CLI/port layer
-(all-is-cubes-port ExportFormat): `.vox` = MagicaVoxel, anything else =
-the native versioned JSON (io/save.py). The reference's interchange
-schema, `.alliscubesjson`, needs `io/import_ref.py`, which the port does
-not have yet (ROADMAP A9(c)): both directions raise `NotImplementedError`
-for it rather than write or read another format.
+(all-is-cubes-port ExportFormat): `.alliscubesjson` = the reference's
+interchange schema (io/import_ref.py), `.vox` = MagicaVoxel, anything
+else = the native versioned JSON (io/save.py).
 """
 
 from __future__ import annotations
 
 import os
-
-_REF_JSON = ".alliscubesjson"
-
-
-def _no_reference_json(path: str):
-    return NotImplementedError(
-        f"{path}: the port cannot read or write .alliscubesjson yet: io/import_ref.py is "
-        "still to be ported (ROADMAP A9(c))"
-    )
-
 
 class WhenceUniverse:
     """Abstract provenance (whence.rs:20). Default: nothing is possible."""
@@ -88,9 +76,11 @@ class FileWhence(WhenceUniverse):
 
     def save(self, universe) -> None:
         path = self.path
-        if path.endswith(_REF_JSON):
-            raise _no_reference_json(path)
-        if path.endswith(".vox"):
+        if path.endswith(".alliscubesjson"):
+            from .import_ref import save_alliscubesjson
+
+            save_alliscubesjson(universe, path)
+        elif path.endswith(".vox"):
             from .vox import export_vox
 
             sp = universe.spaces.get("world") or next(iter(universe.spaces.values()))
@@ -105,9 +95,11 @@ def load_universe_file(path: str, device="cuda"):
     """Load a universe from any supported on-disk format onto `device`
     (the card unless the caller asks for the CPU), with `whence` set so
     it saves back to its origin (startup.rs DocumentSource role)."""
-    if path.endswith(_REF_JSON):
-        raise _no_reference_json(path)
-    if path.endswith(".vox"):
+    if path.endswith(".alliscubesjson"):
+        from .import_ref import load_alliscubesjson
+
+        u, _warnings = load_alliscubesjson(path, device=device)
+    elif path.endswith(".vox"):
         from ..universe import Universe
         from .vox import import_vox
 

@@ -2,9 +2,10 @@
 
 Port of `aic_tpu/light/dense.py` (the bulk half of the reference light
 updater, all-is-cubes/src/space/light/updater.rs). Kept: the pair tables,
-the contents-derived context, `_finish`, the pass and the convergence
+the contents-derived context, `_finish`, the pass, the ray-split pass
+over several ranks (`relight_all_pass_sharded`) and the convergence
 driver. Left out: the coarse multigrid seed (measured negative in
-`aic_tpu`) and the sharded pass.
+`aic_tpu`).
 
 The pass itself is `relight_kernel.relight_pass`: the CUDA kernel for a
 state on the card, its plain PyTorch twin for one on the CPU.
@@ -83,22 +84,40 @@ def _dealt_pair_tables(max_distance: int, size: tuple[int, int, int]) -> dict:
     return deal_pair_tables(_pair_tables(max_distance, size))
 
 
-#: (light distance, size, id(sky_faces)) → (weakref to the sky, PairTables).
+#: (light distance, size, id(sky_faces), share) → (weakref to the sky, PairTables).
 _DEVICE_PAIRS: dict = {}
 
 
-def device_pair_tables(state: SpaceState) -> PairTables:
-    """The pair tables of the state's size and light distance with its
-    sky's ray light, on its device. They depend on nothing else, so they
-    are built once per sky tensor (a snapshot makes one; edits and device
-    ticks keep it) and shared by the dense context and the queue's
-    batches."""
-    md, size = state.light_max_distance, tuple(state.contents.shape)
-    key = (md, size, id(state.sky_faces))
+@functools.lru_cache(maxsize=16)
+def _pair_tables_sharded(max_distance: int, size: tuple[int, int, int], world: int, rank: int):
+    """`_pair_tables` of the chart rays with ray_id % world == rank, one
+    rank's share of a ray-split pass (`aic_tpu` dense.py:449 splits them
+    so), and their deal over the kernel's warps: (flat tables, dealt)."""
+    ch = _pair_tables(max_distance, size)
+    keep = ch["ray_id"] % world == rank
+    sub = {k: (v[keep] if k != "cosines" else v) for k, v in ch.items()}
+    return sub, deal_pair_tables(sub)
+
+
+def device_pair_tables(state: SpaceState, size=None, share=None) -> PairTables:
+    """The pair tables of the state's light distance with its sky's ray
+    light, on its device, truncated to `size` (the state's own unless a
+    slab of a larger world asks for the world's), with every chart ray or
+    `share` = (world, rank)'s (`_pair_tables_sharded`). They depend on
+    nothing else, so they are built once per sky tensor (a snapshot makes
+    one; edits and device ticks keep it) and shared by the dense context
+    and the queue's batches."""
+    md = state.light_max_distance
+    size = tuple(state.contents.shape) if size is None else tuple(size)
+    key = (md, size, id(state.sky_faces), share)
     hit = _DEVICE_PAIRS.get(key)
     if hit is not None and hit[0]() is state.sky_faces:
         return hit[1]
-    pairs = PairTables.from_numpy(_pair_tables(md, size), _dealt_pair_tables(md, size), state.sky_faces)
+    if share is None:
+        ch, dealt = _pair_tables(md, size), _dealt_pair_tables(md, size)
+    else:
+        ch, dealt = _pair_tables_sharded(md, size, *share)
+    pairs = PairTables.from_numpy(ch, dealt, state.sky_faces)
     if len(_DEVICE_PAIRS) >= 8:
         _DEVICE_PAIRS.pop(next(iter(_DEVICE_PAIRS)))
     _DEVICE_PAIRS[key] = (weakref.ref(state.sky_faces), pairs)
@@ -133,10 +152,16 @@ class RelightCtx:
     kernel: KernelTables  # the CUDA pass's work list and mask
 
 
-def build_relight_ctx(state: SpaceState) -> RelightCtx:
-    """Precompute the dense per-cube volumes one pass needs."""
+def build_relight_ctx(state: SpaceState, size=None, own=None) -> RelightCtx:
+    """Precompute the dense per-cube volumes one pass needs.
+
+    A slab of a larger world (`parallel/slab.py`) passes the world's
+    `size`, whose pair tables the pass walks, and `own` = (x0, x1): the
+    planes whose cubes it relights. The other planes are the slab's halo:
+    they get no ray weight, so neither the kernel's work list nor the
+    plain version walks a ray from them."""
     t = state.tables
-    size = tuple(state.contents.shape)
+    size = tuple(state.contents.shape) if size is None else tuple(size)
     idx = state.contents.long()
     md = state.light_max_distance
 
@@ -156,6 +181,9 @@ def build_relight_ctx(state: SpaceState) -> RelightCtx:
         [(visible_v | vis_sh[int(opp[f])] | emis_sh[f]).to(torch.float32) for f in range(6)],
         dim=-1,
     )
+    if own is not None:
+        dir_weights[: own[0]] = 0.0
+        dir_weights[own[1] :] = 0.0
 
     # Root step (face Within).
     root_pickup = visible_v & ~origin_opaque & (mean_alpha < 1.0)
@@ -169,7 +197,7 @@ def build_relight_ctx(state: SpaceState) -> RelightCtx:
     dir_weights = dir_weights.contiguous()
     alpha0 = alpha0.contiguous()
     origin_opaque = origin_opaque.contiguous()
-    pairs = device_pair_tables(state)
+    pairs = device_pair_tables(state, size)
     return RelightCtx(
         dir_weights=dir_weights,
         alpha0=alpha0,
@@ -225,6 +253,24 @@ def relight_all_pass(state: SpaceState, ctx: RelightCtx) -> torch.Tensor:
     incoming, total_w = relight_pass(
         state.contents, light_rgb, state.tables.light_face_rows, ctx
     )
+    return _finish(ctx, incoming + ctx.incoming0, total_w)
+
+
+def relight_all_pass_sharded(state: SpaceState, ctx: RelightCtx, mesh) -> torch.Tensor:
+    """One Jacobi pass with the chart's rays split over the ranks of
+    `mesh` (`parallel.make_mesh`), as `aic_tpu` dense.py:470 splits them
+    over a device mesh: every rank holds the whole state and `ctx`, walks
+    the rays with ray_id % world == rank (K2 on the card, its plain
+    version on the CPU) and all-reduces the per-cube incoming light and
+    ray weight, which add over rays. Every rank returns the new packed
+    light u8[X,Y,Z,4]. Called by every rank."""
+    from ..parallel import comm
+
+    share = dataclasses.replace(ctx, pairs=device_pair_tables(state, share=(mesh.world, mesh.rank)))
+    light_rgb = lightpack.decode_rgb(state.light).contiguous()
+    incoming, total_w = relight_pass(state.contents, light_rgb, state.tables.light_face_rows, share)
+    incoming = comm.all_reduce(incoming, mesh)
+    total_w = comm.all_reduce(total_w, mesh)
     return _finish(ctx, incoming + ctx.incoming0, total_w)
 
 
@@ -300,19 +346,26 @@ def converge(state: SpaceState, ctx: RelightCtx, max_passes: int = 32, overrelax
     return light, passes
 
 
-def evaluate_light_dense(state: SpaceState):
-    """Full-volume relight to convergence. Returns (state, passes_run);
-    `converge`'s `LightNotConverged` warning reaches the caller.
+def evaluate_light_dense(state: SpaceState, max_passes: int = 32, ctx: RelightCtx | None = None,
+                         seed: bool = True):
+    """Full-volume relight to convergence, at most `max_passes` passes,
+    with `ctx` built from the state's contents unless given (`aic_tpu`
+    dense.py:649; its opt-in coarse seed is not ported). Returns (state,
+    passes_run); `converge`'s `LightNotConverged` warning reaches the
+    caller.
 
-    The ``fast_evaluate_light`` column scan runs first (updater.rs:531-576)
-    and starts sky-lit columns at their fixpoint. A CUDA state converges
-    with over-relaxation, a CPU state with plain Jacobi, as the JAX
-    package does on the TPU and the CPU."""
-    from .refproc import fast_evaluate_seed
+    With `seed` the ``fast_evaluate_light`` column scan runs first
+    (updater.rs:531-576) and starts sky-lit columns at their fixpoint. A
+    CUDA state converges with over-relaxation, a CPU state with plain
+    Jacobi, as the JAX package does on the TPU and the CPU."""
+    if seed:
+        from .refproc import fast_evaluate_seed
 
-    state, _prio = fast_evaluate_seed(state)
+        state, _prio = fast_evaluate_seed(state)
+    if ctx is None:
+        ctx = build_relight_ctx(state)
     w = OVERRELAX if state.device.type == "cuda" else 1.0
-    light, passes = converge(state, build_relight_ctx(state), overrelax=w)
+    light, passes = converge(state, ctx, max_passes=max_passes, overrelax=w)
     state = dataclasses.replace(
         state, light=light, light_dirty=torch.zeros_like(state.light_dirty)
     )

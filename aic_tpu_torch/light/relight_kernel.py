@@ -144,11 +144,16 @@ class PairTables:
     word per pair for the kernel, its rays in the order the kernel's warps
     walk them (`deal_pair_tables`), so that a warp's pairs are one run of
     `words`. Cosines and sky are per chart ray; the volume kernel finds
-    them through `ray_id`, the listed kernel through `lane_ray`."""
+    them through `ray_id`, the listed kernel through `lane_ray`.
+
+    A table may hold a subset of the chart's rays (one rank's share of a
+    ray-split pass, `dense.device_pair_tables(share=...)`): then only
+    those are dealt, and the cosines of the others are 0, so that the
+    plain version gives them no weight either."""
 
     words: torch.Tensor  # i32[N+2] `pack_pair_words`, rays in dealt order
-    ray_start: torch.Tensor  # i32[R+1] first word of each dealt ray
-    ray_id: torch.Tensor  # i32[R] chart ray of each dealt ray
+    ray_start: torch.Tensor  # i32[D+1] first word of each dealt ray (D <= R)
+    ray_id: torch.Tensor  # i32[D] chart ray of each dealt ray
     warp_start: torch.Tensor  # i32[WARPS+1] first dealt ray of each kernel warp
     lane_ray: torch.Tensor  # i32[W*LANES] `deal_lanes`: chart ray of each listed lane, or -1
     lane_start: torch.Tensor  # i32[W*LANES] first word of each listed lane's ray (0 where -1)
@@ -162,7 +167,8 @@ class PairTables:
     @staticmethod
     def from_numpy(ch: dict, dealt: dict, sky_faces: torch.Tensor) -> "PairTables":
         """The flat pair tables `ch` (`dense._pair_tables`) and their deal
-        (`deal_pair_tables(ch)`) on `sky_faces`'s device."""
+        (`deal_pair_tables(ch)`) on `sky_faces`'s device. Chart rays with
+        no pair in `ch` get cosines of 0."""
         dev = sky_faces.device
         ray_id = ch["ray_id"]
         n_rays = ch["cosines"].shape[0]
@@ -178,6 +184,8 @@ class PairTables:
         step_end[ray_id, pos] = ch["is_end"]
         cosines = torch.as_tensor(ch["cosines"], device=dev)
         sky_ray = (cosines @ sky_faces) / cosines.sum(-1, keepdim=True)
+        if not counts.all():
+            cosines = cosines * torch.as_tensor(counts > 0, device=dev)[:, None]
         t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
         return PairTables(
             words=t(dealt["words"]),
@@ -196,23 +204,27 @@ class PairTables:
 
 
 def deal_pair_tables(ch: dict) -> dict:
-    """The kernel's layout of the chart's flat pair tables
-    (`dense._pair_tables`), as numpy arrays: the rays dealt out over
-    `WARPS` warps (`deal_rays`), then words (`pack_pair_words`) and
-    ray_start in that order, ray_id and warp_start; and the listed
-    kernel's lanes (`deal_lanes`) with the first word of each lane's ray.
-    It depends only on the chart, so the caller caches it."""
+    """The kernel's layout of the flat pair tables (`dense._pair_tables`,
+    or a subset of their rays), as numpy arrays: the rays that have pairs
+    dealt out over `WARPS` warps (`deal_rays`), then words
+    (`pack_pair_words`) and ray_start in that order, ray_id and
+    warp_start; and the listed kernel's lanes (`deal_lanes`) with the
+    first word of each lane's ray. It depends only on the tables, so the
+    caller caches it."""
     n_rays = ch["cosines"].shape[0]
     counts = np.bincount(ch["ray_id"], minlength=n_rays)
-    ray_id, warp_start = deal_rays(counts, WARPS)
-    position = np.empty(n_rays, np.int64)
-    position[ray_id] = np.arange(n_rays)
+    rays = np.flatnonzero(counts)  # the chart rays the tables hold
+    dealt, warp_start = deal_rays(counts[rays], WARPS)
+    ray_id = rays[dealt].astype(np.int32)
+    position = np.full(n_rays, -1, np.int64)
+    position[ray_id] = np.arange(len(ray_id))
     pair = np.argsort(position[ch["ray_id"]], kind="stable")  # pairs in dealt ray order
     off, face, is_end = ch["off"][pair], ch["face"][pair], ch["is_end"][pair]
     ray_start = np.concatenate([[0], np.cumsum(counts[ray_id])]).astype(np.int32)
     if not is_end[ray_start[1:] - 1].all():
         raise ValueError("a chart ray does not end at its last pair")
-    lane_ray = deal_lanes(counts)
+    lanes = deal_lanes(counts[rays])
+    lane_ray = np.where(lanes >= 0, rays[lanes], -1).astype(np.int32)
     lane_start = np.where(lane_ray >= 0, ray_start[:-1][position[lane_ray]], 0).astype(np.int32)
     return dict(words=pack_pair_words(off, face, is_end), ray_start=ray_start, ray_id=ray_id,
                 warp_start=warp_start, lane_ray=lane_ray, lane_start=lane_start)
@@ -432,6 +444,7 @@ def relight_pass_cuda(contents, light_rgb, face_rows, ctx, dyn=False):
     X, Y, Z = contents.shape
     n = kt.cubes.shape[0]
     R = p.cosines.shape[0]
+    D = p.ray_id.shape[0]
     req = kernels.require
     req(contents, "contents", torch.int32, (X, Y, Z), dev)
     req(light_rgb, "light_rgb", torch.float32, (X, Y, Z, 3), dev)
@@ -442,8 +455,8 @@ def relight_pass_cuda(contents, light_rgb, face_rows, ctx, dyn=False):
     req(kt.cubes, "cubes", torch.int32, (n,), dev)
     req(p.cosines, "cosines", torch.float32, (R, 6), dev)
     req(p.sky_ray, "sky_ray", torch.float32, (R, 3), dev)
-    req(p.ray_start, "ray_start", torch.int32, (R + 1,), dev)
-    req(p.ray_id, "ray_id", torch.int32, (R,), dev)
+    req(p.ray_start, "ray_start", torch.int32, (D + 1,), dev)
+    req(p.ray_id, "ray_id", torch.int32, (D,), dev)
     req(p.words, "words", torch.int32, tuple(p.words.shape), dev)
     req(p.warp_start, "warp_start", torch.int32, (WARPS + 1,), dev)
     incoming = torch.zeros((X, Y, Z, 3), dtype=torch.float32, device=dev)

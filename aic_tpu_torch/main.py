@@ -37,8 +37,7 @@ most of the world is dirty, as in a freshly built one), and then:
 through the CUDA kernels and refuses to run without a card; `--device
 cpu` runs their plain PyTorch twins. The meshes and exports are host
 code (numpy and the native C++ in `native/`), made after the load
-relight and before any frame. Not ported yet: `.alliscubesjson` files
-(ROADMAP A9(c)).
+relight and before any frame.
 """
 
 from __future__ import annotations

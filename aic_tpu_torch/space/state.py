@@ -183,17 +183,18 @@ def scatter_set_cubes(state: SpaceState, idx: torch.Tensor, new_indices: torch.T
     return dataclasses.replace(state, contents=contents, light_dirty=dirty, cells=_cells_for(state, contents))
 
 
-def _cells_for(state: SpaceState, contents: torch.Tensor) -> torch.Tensor:
-    """Packed cells for `contents` under the state's palette, on its
-    device: the space bricks built anew (skip field included), the voxel
-    entries' brick rows of `state.cells` kept."""
+def _cells_for(state: SpaceState, contents: torch.Tensor, tables: BlockTables | None = None) -> torch.Tensor:
+    """Packed cells for `contents` under the state's palette (`tables`, the
+    state's on `contents`' device), on that device: the space bricks built
+    anew (skip field included), the voxel entries' brick rows of
+    `state.cells` kept."""
     from ..raytrace.accel import brick_dims, build_trace_cells, cell_payload, to_bricks
 
-    t = state.tables
+    t = state.tables if tables is None else tables
     space_cells = build_trace_cells(contents, t.visible, t.voxel_index >= 0, t.res_log2,
                                     payload=cell_payload(t.voxel_index))
     n_sb = int(np.prod(brick_dims(state.contents.shape)))
-    return torch.cat([to_bricks(space_cells), state.cells[n_sb:]], dim=0)
+    return torch.cat([to_bricks(space_cells), state.cells[n_sb:].to(contents.device)], dim=0)
 
 
 def state_from_numpy(
@@ -256,11 +257,12 @@ def visible_light_volume(state: SpaceState, view_position, view_distance: float)
     return tuple(int(v) for v in lo), tuple(int(v) for v in hi)
 
 
-def window_state(state: SpaceState, lower, upper) -> SpaceState:
-    """The state cut to the world-coordinate window [lower, upper), on its
-    device (the big-world analog of the reference's windowed light
-    texture, gpu/src/light_texture.rs:139-239). Contents and light are
-    sliced; the packed cells' space-brick section is rebuilt for the
+def window_state(state: SpaceState, lower, upper, device=None) -> SpaceState:
+    """The state cut to the world-coordinate window [lower, upper), on
+    `device` (the state's own by default; only the window and the tables
+    are copied there) (the big-world analog of the reference's windowed
+    light texture, gpu/src/light_texture.rs:139-239). Contents and light
+    are sliced; the packed cells' space-brick section is rebuilt for the
     window by `build_trace_cells` on tensors (the skip field must not see
     visibility outside it), and the voxel entries' brick rows are shared
     unchanged. Rays that leave the window see the sky."""
@@ -273,12 +275,18 @@ def window_state(state: SpaceState, lower, upper) -> SpaceState:
         raise ValueError(f"window {lower}..{upper} outside state bounds")
     sl = tuple(slice(int(a), int(b)) for a, b in zip(rel_lo, rel_hi))
 
-    contents = state.contents[sl].contiguous()
+    dev = state.device if device is None else torch.device(device)
+    contents = state.contents[sl].to(dev).contiguous()
+    tables = state.tables if dev == state.device else state.tables.to(dev)
     return dataclasses.replace(
         state,
         contents=contents,
-        light=state.light[sl].contiguous(),
-        light_dirty=state.light_dirty[sl].contiguous(),
-        cells=_cells_for(state, contents),
+        light=state.light[sl].to(dev).contiguous(),
+        light_dirty=state.light_dirty[sl].to(dev).contiguous(),
+        cells=_cells_for(state, contents, tables),
+        tables=tables,
+        sky_faces=state.sky_faces.to(dev),
+        sky_octants=state.sky_octants.to(dev),
+        sky_mean=state.sky_mean.to(dev),
         lower=tuple(int(v) for v in lo_w),
     )

@@ -137,12 +137,33 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    C++ reference relight (`ref_relight_state` on light_bench and
    cornell-box 32, one run each) on the host's CPU beside the card's `evaluate_light_dense` of the same
    scenes.
-11. the kernels line (JSON; K1's row from demo-city's frame, its phases'
+11. multi-GPU — the multi-GPU paths (`aic_tpu_torch.parallel`), ranks
+   started by `parallel.spawn` after the kernels are built, each world's
+   states built once here and handed to the ranks as CPU tensors. (a)
+   one NCCL rank per card (`torch.cuda.device_count()`, one on a one-card
+   machine): the dry run (`graft_entry._dryrun_multichip_impl`) and a
+   demo-city slab pass held to the one-process K2 pass bit for bit. (b)
+   four ranks on card 0 over gloo, staged through the host (every line
+   says "gloo (host-staged)"): plaza640 (slabs of 160, one hop)
+   relit by `evaluate_light_slab` to convergence and demo-city (seed 0,
+   size 96, slabs of 24, pad 31: two hops) by three slab passes, each
+   pass's gathered light held to the one-process K2 pass from the same
+   light bit for bit, plaza640's pass count to a loop of one-process
+   passes'; demo-city's slab frame at 1920x1080 from bench.py's camera
+   against the one-process `trace_rays` (`SLAB_ATOL`); the atrium's
+   ray-split pass (within one step) and row-sharded frame (bit for bit);
+   K2's ms a pass by rank, each pass's exchanges (ms, bytes), the
+   frames' ms; then `graft_entry.dryrun_multichip(4)` over it. (c) the
+   session's demo-city saved as `.alliscubesjson`, loaded back (contents
+   equal up to the importer's palette renumbering, packed light equal)
+   and opened by `main FILE --graphics print` as a subprocess. The ranks' launches (and main's) are summed and
+   must include K2's full and listed kernels.
+12. the kernels line (JSON; K1's row from demo-city's frame, its phases'
    launches summed; K2's listed mode as `relight_batch`, from the atrium
    step's batch that walked the most rows; launches summed over every
-   main path, demo-city's, the render phase's, the session's and the
-   record phase's included), the `nvidia-smi` line, and the last line
-   {"ok": true, "device": {...}}.
+   main path, demo-city's, the render phase's, the session's, the
+   record phase's and the multi-GPU ranks' included), the `nvidia-smi`
+   line, and the last line {"ok": true, "device": {...}}.
 
 Needs CUDA and the `aic_tpu_torch` package beside this file; imports no
 JAX.
@@ -2725,6 +2746,386 @@ def record_world(dev, smi, reset_counts, read_counts, session) -> dict:
     return dict(counts=counts, ref=ref)
 
 
+#: The multi-GPU phase (11). Four ranks share card 0 over the gloo
+#: transport, which stages every exchange through host memory (NCCL
+#: refuses two ranks on one card): their lines say "gloo (host-staged)",
+#: so that none reads as NVLink. Each slab pass's gathered light is held
+#: to the one-process K2 pass from the same light bit for bit; the
+#: row-sharded frame to the one-process frame bit for bit. The slab frame
+#: is held to the one-process frame within tests/test_slab.py's SLAB_ATOL
+#: on the rays that end within the trace's budget, but for knife edges
+#: (at most PIXEL_MAX_SHARE of them, as the trace paths are held: a slab
+#: window's box moves where a ray's walk starts by an ulp): each slab traces
+#: with a budget of its own (transparency phases, steps, the 1/256
+#: transmittance a ray must keep to resume), so a ray that spends the
+#: whole-world trace's (its last phase still hits) goes on further in the
+#: slab composite, in `aic_tpu`'s design as in the port's (the same 26 of
+#: 4,608 rays differ in both packages on demo-city size 32 on the CPU).
+#: Those rays, and the pixels over the tracer tests' LIGHT_ATOL
+#: (tests/test_torch_tracer.py), are counted and printed.
+GLOO = "gloo (host-staged)"
+GLOO_RANKS = 4
+MULTI_W, MULTI_H = 1920, 1080
+LIGHT_ATOL = 2e-3
+SLAB_ATOL = 5e-3
+CITY_SLAB_PASSES = 3
+SLAB_MAX_PASSES = 64
+
+
+def _sync() -> None:
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def _add(total: dict, part: dict) -> None:
+    for k, v in part.items():
+        total[k] = total.get(k, 0) + v
+
+
+class _OnPath:
+    """Adds the kernel launches of the calls it wraps to `counts`: a
+    rank's launches on the sharded paths, without the one-process
+    passes and frames it is held against."""
+
+    def __init__(self):
+        self.counts: dict = {}
+
+    def __call__(self, fn, *args, **kw):
+        from aic_tpu_torch.graft_entry import launch_counts
+
+        before = launch_counts()
+        out = fn(*args, **kw)
+        _sync()
+        _add(self.counts, _delta(before, launch_counts()))
+        return out
+
+
+def _checked_slab_passes(mesh, state, on_path, passes=None):
+    """Slab passes of `state` on this rank: `evaluate_light_slab` to
+    convergence (`passes` None) or `passes` passes. Each pass's gathered
+    light is held, on rank 0, to the one-process K2 pass
+    (`dense.relight_all_pass`) from the same light on the same card (a
+    comparison: not on the path). Returns (rows, passes run): per pass
+    this rank's K2 ms (CUDA events), its exchanges' ms and bytes (the
+    first pass's include the one-time contents halo), the world's
+    max_diff and, on rank 0, whether the gathered light was the
+    one-process pass's bit for bit."""
+    import dataclasses as dc
+
+    import torch
+    from aic_tpu_torch.light import dense
+    from aic_tpu_torch.parallel import comm, slab
+
+    dev = mesh.device
+    sh = on_path(slab.shard_space, state, mesh)
+    ref = state.to(dev) if mesh.rank == 0 else None
+    ctx = dense.build_relight_ctx(ref) if ref is not None else None
+    rows: list = []
+    light = [state.light.to(dev)]
+    plain_pass = slab.relight_pass_slab
+
+    def checked(sh_):
+        comm.reset_exchanges()
+        k2 = []
+        stats = on_path(plain_pass, sh_, k2)
+        ex = list(comm.EXCHANGES)
+        gathered = sh_.gather().light
+        row = {"k2_ms": k2[0], "exchange_ms": sum(e["ms"] for e in ex),
+               "exchange_bytes": sum(e["bytes"] for e in ex), "max_diff": int(stats["max_diff"])}
+        if ref is not None:
+            want = dense.relight_all_pass(dc.replace(ref, light=light[0]), ctx)
+            row["equal"] = bool(torch.equal(gathered, want))
+            if not row["equal"]:
+                d = (gathered[..., :3].int() - want[..., :3].int()).abs()
+                row["diff"] = (int(d.max()), int((d > 0).any(-1).sum()),
+                               bool(torch.equal(gathered[..., 3], want[..., 3])))
+        light[0] = gathered
+        rows.append(row)
+        return stats
+
+    if passes is None:
+        slab.relight_pass_slab = checked  # evaluate_light_slab's pass, checked as it runs
+        try:
+            n = slab.evaluate_light_slab(sh, max_passes=SLAB_MAX_PASSES)
+        finally:
+            slab.relight_pass_slab = plain_pass
+    else:
+        for _ in range(passes):
+            checked(sh)
+        n = passes
+    return sh, rows, n
+
+
+def _plain_passes(state, max_passes) -> int:
+    """The passes of a loop of one-process `relight_all_pass` passes from
+    the state's light until no cube moves by more than one step."""
+    import dataclasses as dc
+
+    from aic_tpu_torch.light import dense
+    from aic_tpu_torch.math import lightpack
+
+    ctx = dense.build_relight_ctx(state)
+    for n in range(1, max_passes + 1):
+        new = dense.relight_all_pass(state, ctx)
+        diff = int(lightpack.difference_priority(state.light, new).max())
+        state = dc.replace(state, light=new)
+        if diff <= 1:
+            return n
+    return max_passes
+
+
+def _timed_frame(fn, mesh=None):
+    """(fn(), its host-clock ms), the card synchronized before and after;
+    with `mesh`, its ranks meet first, so no rank's time holds its wait
+    for the others."""
+    if mesh is not None and mesh.world > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
+    _sync()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def gloo_ranks(mesh, plaza_state, city_state, city_cam, atrium_state, atrium_cam) -> dict:
+    """Rank work of phase 11(b): four ranks on one card over gloo. The
+    states come as CPU tensors; a slab world moves only the rank's slab
+    and its halos to the card, a replicated one the whole state.
+
+    plaza640: `evaluate_light_slab` to convergence, every pass checked
+    (`_checked_slab_passes`), and, on rank 0, the passes of a loop of
+    one-process passes. Demo-city: CITY_SLAB_PASSES checked slab passes,
+    then `trace_rays_slab` at MULTI_W x MULTI_H from `city_cam` against
+    the one-process `trace_rays` (rank 0). The atrium:
+    `relight_all_pass_sharded` against the one-process pass, and
+    `render_sharded` against `trace_rays` of the whole frame (rank 0).
+    Returns this rank's launches on those paths and its times."""
+    import torch
+    from aic_tpu_torch.light import dense
+    from aic_tpu_torch.parallel import render_sharded, slab
+    from aic_tpu_torch.raytrace.tracer import trace_rays
+
+    dev = mesh.device
+    on_path = _OnPath()
+    out: dict = {"rank": mesh.rank}
+
+    _, out["plaza"], out["plaza_passes"] = _checked_slab_passes(mesh, plaza_state, on_path)
+    if mesh.rank == 0:
+        out["plaza_plain_passes"] = _plain_passes(plaza_state.to(dev), SLAB_MAX_PASSES)
+
+    sh, out["city"], _ = _checked_slab_passes(mesh, city_state, on_path, passes=CITY_SLAB_PASSES)
+    o, d = city_cam.pixel_rays(device=dev)
+    (light, trans), out["city_slab_frame_ms"] = _timed_frame(
+        lambda: on_path(slab.trace_rays_slab, sh, o, d, city_cam.options), mesh)
+    lit = sh.gather()
+    if mesh.rank == 0:
+        (_, _), out["city_frame_ms"] = _timed_frame(lambda: trace_rays(lit, o, d, city_cam.options))
+        wl, wt, hits = trace_rays(lit, o, d, city_cam.options, return_hits=True)
+        err = torch.maximum((light - wl).abs().amax(-1), (trans - wt).abs())
+        spent = (hits["phases"][-1]["hit_kind"] != 0).reshape(err.shape)  # the last phase still hit
+        kept = err[~spent]
+        out["city_frame"] = dict(
+            max_err=float(kept.max()), over_slab=int((kept > SLAB_ATOL).sum()), over_light=int((err > LIGHT_ATOL).sum()),
+            spent=int(spent.sum()), spent_max_err=float(err[spent].max()) if spent.any() else 0.0, rays=int(err.numel()))
+
+    atrium = atrium_state.to(dev)
+    ctx = dense.build_relight_ctx(atrium)
+    # K2 over the rank's rays, and the all-reduce.
+    new_light, out["atrium_pass_ms"] = _timed_frame(
+        lambda: on_path(dense.relight_all_pass_sharded, atrium, ctx, mesh), mesh)
+    (light, trans), out["atrium_rows_frame_ms"] = _timed_frame(
+        lambda: on_path(render_sharded, atrium, atrium_cam, mesh), mesh)
+    if mesh.rank == 0:
+        want = dense.relight_all_pass(atrium, ctx)
+        d = (new_light[..., :3].int() - want[..., :3].int()).abs()
+        out["atrium_pass"] = (int(d.max()), bool(torch.equal(new_light[..., 3], want[..., 3])))
+        o, d = atrium_cam.pixel_rays(device=dev)
+        (wl, wt), out["atrium_frame_ms"] = _timed_frame(lambda: trace_rays(atrium, o, d, atrium_cam.options))
+        out["atrium_frame_equal"] = bool(torch.equal(light, wl) and torch.equal(trans, wt))
+    out["counts"] = on_path.counts
+    return out
+
+
+def nccl_ranks(mesh, city_state) -> dict:
+    """Rank work of phase 11(a), one NCCL rank per card: the dry run
+    (`graft_entry._dryrun_multichip_impl`), then one slab pass of
+    demo-city, whose gathered light rank 0 holds to the one-process K2
+    pass bit for bit."""
+    import torch
+    from aic_tpu_torch import graft_entry
+    from aic_tpu_torch.light import dense
+    from aic_tpu_torch.parallel import slab
+
+    on_path = _OnPath()
+    t0 = time.perf_counter()
+    on_path(graft_entry._dryrun_multichip_impl, mesh)
+    out = {"rank": mesh.rank, "dry_s": time.perf_counter() - t0, "transport": mesh.transport,
+           "world": mesh.world}
+    sh = on_path(slab.shard_space, city_state, mesh)
+    on_path(slab.relight_pass_slab, sh)
+    gathered = sh.gather().light
+    if mesh.rank == 0:
+        ref = city_state.to(mesh.device)
+        out["equal"] = bool(torch.equal(gathered, dense.relight_all_pass(ref, dense.build_relight_ctx(ref))))
+    out["counts"] = on_path.counts
+    return out
+
+
+def multi_gpu_world(dev, smi, opts, universe) -> dict:
+    """Phase 11: the multi-GPU paths, in two worlds of ranks, each world's
+    states built once here and handed to the ranks as CPU tensors (the
+    kernels were built before any rank started): (a) one NCCL rank per
+    card (`nccl_ranks`); (b) GLOO_RANKS ranks on card 0 over the
+    host-staged gloo transport (`gloo_ranks`), then
+    `graft_entry.dryrun_multichip(GLOO_RANKS)` over it; (c)
+    `universe` (the session's demo-city) saved with
+    `save_alliscubesjson`, loaded back (contents equal up to the palette
+    renumbering the importer makes, packed light equal) and opened by
+    `main FILE --graphics print` as a subprocess.
+    Returns the launches of every rank and of main, summed."""
+    import tempfile
+
+    import torch
+    from aic_tpu_torch import graft_entry
+    from aic_tpu_torch.content import TemplateParameters, atrium, build_universe, plaza
+    from aic_tpu_torch.io import load_alliscubesjson, save_alliscubesjson
+    from aic_tpu_torch.main import default_camera
+    from aic_tpu_torch.parallel import spawn
+    from aic_tpu_torch.raytrace import Camera, GraphicsOptions, Viewport
+
+    counts: dict = {}
+    t0 = time.perf_counter()
+    plaza_state = plaza().snapshot(device=dev).to("cpu")
+    city = build_universe("demo-city", TemplateParameters(seed=0, size=96), device=dev)
+    city_state = city.states["world"].to("cpu")
+    sp = city.spaces["world"]
+    city_cam = Camera(GraphicsOptions(lighting_display="smoothstep", fog="none", transparency="surface"),
+                      Viewport(MULTI_W, MULTI_H))
+    sz, lo = np.asarray(sp.bounds.size, np.float64), np.asarray(sp.bounds.lower, np.float64)
+    city_cam.look_at(lo + sz * np.array([0.5, 0.6, 0.95]), lo + sz * 0.5)  # bench.py:259
+    atrium_space = atrium()
+    atrium_state = atrium_space.snapshot(device=dev).to("cpu")
+    atrium_cam = default_camera(atrium_space, MULTI_W, MULTI_H, opts)
+    del city
+    torch.cuda.empty_cache()
+    build_s = time.perf_counter() - t0
+
+    # (a) one NCCL rank per card.
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    ranks = spawn(nccl_ranks, n, "cuda", "nccl", args=(city_state,), threads=2, timeout=600)
+    secs = time.perf_counter() - t0
+    if not ranks[0]["equal"]:
+        fail("multi-gpu nccl: demo-city's gathered slab pass is not the one-process K2 pass")
+    for r in ranks:
+        _add(counts, r["counts"])
+    phase("multi-gpu", f"(a) nccl, {n} rank(s), one a card ({smi}): dry run {ranks[0]['dry_s']:.3f} s, then "
+          f"demo-city {tuple(city_state.contents.shape)} in slabs of {city_state.contents.shape[0] // n}: one slab "
+          f"pass, gathered, equal to "
+          f"the one-process K2 pass bit for bit; the world {secs:.3f} s with start-up; launches by rank "
+          f"{[r['counts'] for r in ranks]}")
+
+    # (b) four ranks on card 0 over the host-staged gloo transport.
+    t0 = time.perf_counter()
+    ranks = spawn(gloo_ranks, GLOO_RANKS, "cuda", "gloo",
+                  args=(plaza_state, city_state, city_cam, atrium_state, atrium_cam), threads=2, timeout=900)
+    secs = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks:
+        _add(counts, r["counts"])
+    for name, st in (("plaza", plaza_state), ("city", city_state)):
+        rows, size = r0[name], tuple(st.contents.shape)
+        pad = min(st.light_max_distance + 1, size[0])
+        slab_x = size[0] // GLOO_RANKS
+        bad = [i for i, row in enumerate(rows) if not row["equal"]]
+        if bad:
+            fail(f"multi-gpu {GLOO}: {name} slab pass(es) {bad} differ from the one-process K2 pass: "
+                 f"{[rows[i]['diff'] for i in bad]} (max step, cubes, statuses equal)")
+        label = "plaza640" if name == "plaza" else "demo-city"
+        phase("multi-gpu", f"(b) {GLOO}, {GLOO_RANKS} ranks on {smi}: {label} {size} in slabs of "
+              f"{slab_x}, halo pad {pad} ({-(-pad // slab_x)} hop(s)): {len(rows)} slab passes, each "
+              f"gathered light equal to the one-process K2 pass from the same light bit for bit; K2 ms a pass by "
+              f"rank {[[round(row['k2_ms'], 4) for row in r[name]] for r in ranks]}; exchange ms a pass (rank 0) "
+              f"{[round(row['exchange_ms'], 3) for row in rows]}, bytes {[row['exchange_bytes'] for row in rows]}; "
+              f"max_diff {[row['max_diff'] for row in rows]}")
+    if r0["plaza_passes"] >= SLAB_MAX_PASSES or r0["plaza_passes"] != r0["plaza_plain_passes"]:
+        fail(f"multi-gpu {GLOO}: plaza640 took {r0['plaza_passes']} slab passes, the one-process loop "
+             f"{r0['plaza_plain_passes']}")
+    cf = r0["city_frame"]
+    if cf["over_slab"] > PIXEL_MAX_SHARE * cf["rays"]:
+        fail(f"multi-gpu {GLOO}: demo-city's slab frame: {cf}: rays within the trace's budget over {SLAB_ATOL}")
+    d_max, status_equal = r0["atrium_pass"]
+    if d_max > RELIGHT_MAX_STEP or not status_equal:
+        fail(f"multi-gpu {GLOO}: the atrium's ray-split pass is {d_max} steps from the one-process pass "
+             f"(statuses equal: {status_equal})")
+    if not r0["atrium_frame_equal"]:
+        fail(f"multi-gpu {GLOO}: the atrium's row-sharded frame is not trace_rays' bit for bit")
+    phase("multi-gpu", f"(b) {GLOO} ({smi}): plaza640 converged in {r0['plaza_passes']} slab passes, a loop of "
+          f"one-process passes in {r0['plaza_plain_passes']}; demo-city slab frame {MULTI_W}x{MULTI_H} "
+          f"{[round(r['city_slab_frame_ms'], 1) for r in ranks]} ms by rank (one-process trace_rays "
+          f"{r0['city_frame_ms']:.1f} ms): of {cf['rays']} rays, {cf['spent']} spend the one-process trace's budget "
+          f"(max abs err {cf['spent_max_err']:.3e}), of the others {cf['over_slab']} over {SLAB_ATOL} (at most "
+          f"{PIXEL_MAX_SHARE:g} of the rays; max abs err {cf['max_err']:.3e}); "
+          f"{cf['over_light']} pixels over {LIGHT_ATOL} in all; atrium "
+          f"ray-split pass {[round(r['atrium_pass_ms'], 3) for r in ranks]} ms by rank (K2 and the all-reduce), "
+          f"within {d_max} step of the one-process pass; row-sharded frame "
+          f"{[round(r['atrium_rows_frame_ms'], 1) for r in ranks]} ms by rank (one-process "
+          f"{r0['atrium_frame_ms']:.1f} ms), equal to trace_rays' bit for bit; the world {secs:.3f} s with start-up "
+          f"(worlds built in {build_s:.3f} s); launches by rank {[r['counts'] for r in ranks]}")
+    t0 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(GLOO_RANKS, device="cuda", transport="gloo")
+    dry_s = time.perf_counter() - t0
+    for c in dry:
+        _add(counts, c)
+    phase("multi-gpu", f"(b) {GLOO}: graft_entry.dryrun_multichip({GLOO_RANKS}) {dry_s:.3f} s with start-up; "
+          f"launches by rank {dry}")
+
+    # (c) the reference's .alliscubesjson.
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "aic_tpu_torch", "_build")) as tmp:
+        path = os.path.join(tmp, "city.alliscubesjson")
+        t0 = time.perf_counter()
+        save_alliscubesjson(universe, path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, warns = load_alliscubesjson(path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        # The file holds the whole palette; the importer (`aic_tpu`'s, as
+        # the port's) keeps the entries the contents use, in index order,
+        # so the contents are equal up to that renumbering: one loaded
+        # entry for each saved one.
+        saved, loaded = universe.spaces["world"].contents, back.spaces["world"].contents
+        pairs = np.unique(np.stack([saved.ravel(), loaded.ravel()]), axis=1)
+        n_used = len(np.unique(saved))
+        if warns or saved.shape != loaded.shape or not (
+                pairs.shape[1] == n_used == len(np.unique(pairs[1])) == back.spaces["world"].palette_len()):
+            fail(f"multi-gpu .alliscubesjson: the loaded contents differ (warnings {warns[:3]}, "
+                 f"{pairs.shape[1]} index pairs for {n_used} used entries)")
+        if not torch.equal(back.states["world"].light, universe.states["world"].light):
+            fail("multi-gpu .alliscubesjson: the loaded packed light differs")
+        main_counts, main_s, err = run_main([path, "--graphics", "print"], "multi-gpu .alliscubesjson")
+        if "[open] city.alliscubesjson" not in err:
+            fail(f"multi-gpu .alliscubesjson: main did not open the file: {err[-1000:]}")
+        _add(counts, main_counts)
+        phase("multi-gpu", f"(c) .alliscubesjson ({smi}): the session's demo-city saved {save_s:.3f} s "
+              f"({os.path.getsize(path)} bytes, {len(back.spaces)} spaces), loaded {load_s:.3f} s: contents equal "
+              f"({universe.spaces['world'].palette_len()} palette entries saved, the {n_used} used kept, renumbered) "
+              f"and packed light equal; main FILE --graphics print {main_s:.3f} s as a subprocess, launches {main_counts}")
+    for name in ("relight_pass", "relight_batch"):
+        if counts.get(name, 0) <= 0:
+            fail(f"multi-gpu: {name} was not launched on the multi-GPU paths: {counts}")
+    phase("multi-gpu", f"launches (every rank, main) {counts}")
+    return dict(counts=counts)
+
+
 def main() -> None:
     sys.path.insert(0, HERE)
     import torch
@@ -2737,6 +3138,7 @@ def main() -> None:
     except ImportError as e:
         fail(f"the aic_tpu_torch package is not beside chip_smoke.py ({e})")
     from aic_tpu_torch import block, kernels
+    from aic_tpu_torch.graft_entry import launch_counts
     from aic_tpu_torch.content import atrium, cornell_box, plaza
     from aic_tpu_torch.light import evaluate_light_dense
     from aic_tpu_torch.light import relight_kernel as rk
@@ -2833,8 +3235,7 @@ def main() -> None:
 
     def read_counts():
         torch.cuda.synchronize()
-        return {"relight_pass": rk.LAUNCHES, "relight_pass_dyn": rk.LAUNCHES_DYN,
-                "relight_batch": rk.LAUNCHES_LISTED, "trace_megakernel": tk.LAUNCHES, "trace_v1": v1.LAUNCHES}
+        return launch_counts()
 
     def relight_and_render(space, camera):
         t0 = time.perf_counter()
@@ -2952,13 +3353,17 @@ def main() -> None:
 
     # 10. the record and export path: glTF, STL, APNG, the chunked mesh,
     # audio and the reference relight.
+    universe = session["session"].universe
     recorded = record_world(dev, smi, reset_counts, read_counts, session.pop("session"))
 
+    # 11. the multi-GPU paths and the reference's .alliscubesjson.
+    multi = multi_gpu_world(dev, smi, opts, universe)
+
     counts = {k: atrium_counts[k] + plaza_counts[k] + city["counts"][k] + rendered["counts"][k]
-              + session["counts"][k] + recorded["counts"][k] for k in atrium_counts}
+              + session["counts"][k] + recorded["counts"][k] + multi["counts"].get(k, 0) for k in atrium_counts}
     counts["relight_batch"] = (sum(st["counts"]["relight_batch"] for st in steps.values())
                                + city["counts"]["relight_batch"] + session["counts"]["relight_batch"]
-                               + recorded["counts"]["relight_batch"])
+                               + recorded["counts"]["relight_batch"] + multi["counts"].get("relight_batch", 0))
     rows = [
         ("trace_megakernel", "aic_tpu_torch/csrc/trace.cu", "aic_tpu/raytrace/pallas_trace.py:1140", city["k1"]),
         ("relight_pass", "aic_tpu_torch/csrc/relight.cu", "aic_tpu/light/pallas_relight.py:338",

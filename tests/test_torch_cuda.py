@@ -14,6 +14,7 @@ pass to f32 summation order, 1e-5 relative); the trace kernels'
 within 1e-5 relative (both round every multiply and add separately).
 """
 
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -305,6 +306,36 @@ def test_relight_two_launches_bit_equal(cuda_device, dyn):
     a = relight_kernel.relight_pass_cuda(*args, dyn=dyn)
     b = relight_kernel.relight_pass_cuda(*args, dyn=dyn)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_relight_sum_independent_of_block_mates(cuda_device):
+    """The slab pass's second condition (`parallel/slab.py`): a cube's sum
+    does not depend on which cubes share its block. A work list of every
+    third listed cube, reversed, gives those cubes the bits of the whole
+    list's launch."""
+    ctx, args = _relight_args(chip_smoke.relight_scene(PKG), cuda_device)
+    full = relight_kernel.relight_pass_cuda(*args)
+    cubes = ctx.kernel.cubes.flip(0)[::3].contiguous()
+    sub = dataclasses.replace(ctx, kernel=dataclasses.replace(ctx.kernel, cubes=cubes))
+    got = relight_kernel.relight_pass_cuda(*args[:3], sub)
+    idx = cubes.long()
+    assert torch.equal(got[0].reshape(-1, 3)[idx], full[0].reshape(-1, 3)[idx])
+    assert torch.equal(got[1].reshape(-1)[idx], full[1].reshape(-1)[idx])
+
+
+def test_slab_pass_on_the_card_equals_unsharded(cuda_device):
+    """Two ranks on the card over gloo (staged through the host), slabs of
+    6 at light distance 8 (a halo of 9: two hops): the gathered slab pass
+    is the one-process K2 pass bit for bit, and each rank launched K2."""
+    from aic_tpu_torch.parallel import spawn
+    from torch_rank_workers import slab_pass_worker
+
+    st = chip_smoke.relight_scene(PKG).snapshot(device="cpu")
+    got, *rest = spawn(slab_pass_worker, 2, "cuda", "gloo", args=(st,))
+    card = st.to(cuda_device)
+    want = dense.relight_all_pass(card, dense.build_relight_ctx(card)).cpu().numpy()
+    np.testing.assert_array_equal(got["light"], want)
+    assert got["launches"] == 1 and rest[0]["launches"] == 1
 
 
 def test_relight_all_opaque_gives_zeros(cuda_device):

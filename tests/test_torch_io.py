@@ -191,8 +191,9 @@ def test_vox_export_bytes_and_import_match_aic_tpu(tmp_path):
 
 def test_file_whence_saves_back(tmp_path):
     """A universe opened from a file saves back to it: in the native
-    format, and in `.vox`; the reference's `.alliscubesjson` waits for
-    `io/import_ref.py` and raises rather than write another format."""
+    format, in `.vox` and in the reference's `.alliscubesjson`, which the
+    port reads back, and so does `aic_tpu`'s `FileWhence`: contents equal,
+    the stored light bit for bit."""
     path = str(tmp_path / "doc.json")
     tio.save_universe(rich_universe("torch"), path)
     u = tio.load_universe_file(path, device="cpu")
@@ -211,10 +212,13 @@ def test_file_whence_saves_back(tmp_path):
     assert_saved_space_equal(tio.import_vox(vox)[0], uv.spaces["world"])
 
     ref = str(tmp_path / "doc.alliscubesjson")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tio.load_universe_file(ref, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        TFileWhence(ref).save(u)
+    TFileWhence(ref, device="cpu").save(u)
+    tref = tio.load_universe_file(ref, device="cpu")
+    assert isinstance(tref.whence, TFileWhence) and tref.whence.document_name() == "doc.alliscubesjson"
+    jref = JFileWhence(ref).load()
+    for got in (tref, jref):
+        np.testing.assert_array_equal(got.spaces["world"].contents, u.spaces["world"].contents)
+        np.testing.assert_array_equal(np.asarray(got.states["world"].light), u.states["world"].light.numpy())
     with pytest.raises(ValueError):
         tU.Universe(device="cpu").whence.save(u)
 

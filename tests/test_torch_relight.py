@@ -154,6 +154,23 @@ def test_evaluate_light_dense_matches():
     assert not bool((got.light_dirty > 0).any())
 
 
+def test_evaluate_light_dense_given_ctx_without_seed():
+    """`aic_tpu`'s signature (dense.py:649): a context built by the caller
+    and no column seed, from the snapshot's light; within one pass and
+    one packed step of `aic_tpu`'s. A pass limit short of convergence
+    stops there and warns."""
+    st = _scene((8, 8, 8), md=6)
+    want, want_passes = jdense.evaluate_light_dense(st, max_passes=32, ctx=jdense.build_relight_ctx(st), seed=False)
+    tst = to_port(st)
+    got, passes = tdense.evaluate_light_dense(tst, max_passes=32, ctx=tdense.build_relight_ctx(tst), seed=False)
+    assert abs(passes - want_passes) <= 1
+    step, status_equal = _packed_diff(got.light, want.light)
+    assert step <= 1 and status_equal
+    with pytest.warns(tdense.LightNotConverged):
+        _, passes = tdense.evaluate_light_dense(tst, max_passes=1, seed=False)
+    assert passes == 1
+
+
 @pytest.mark.parametrize("name", ["atrium_small", "cornell16", "mixed12"])
 def test_light_only_split_matches_full_pass(name):
     """The full pass over ring-only light (interior zero, sky on the
