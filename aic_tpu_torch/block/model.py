@@ -115,9 +115,11 @@ class TextPrimitive(Primitive):
     """Voxel text (block/text.rs Primitive::Text).
 
     Two rendering paths:
-    - font="pil" (legacy deviation): the string is rasterized with PIL's
-      bitmap font (text/font.py) and `tile` selects the resolution²
-      window — kept for existing content and saves.
+    - font="pil" (legacy deviation): the string is rasterized in PIL's
+      default font, as `aic_tpu` draws it, composed glyph by glyph from
+      the port's vendored glyph table (text/font.py; no PIL at run time),
+      and `tile` selects the resolution² window — kept for existing
+      content and saves.
     - font in {"system16", "body-text"}: full-fidelity layout through
       text/layout.py — the reference's own glyph atlases, Positioning
       (x, line_y, z per positioning.rs), voxel-scale layout bounds, and

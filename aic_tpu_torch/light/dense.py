@@ -2,10 +2,10 @@
 
 Port of `aic_tpu/light/dense.py` (the bulk half of the reference light
 updater, all-is-cubes/src/space/light/updater.rs). Kept: the pair tables,
-the contents-derived context, `_finish`, the pass, the ray-split pass
-over several ranks (`relight_all_pass_sharded`) and the convergence
-driver. Left out: the coarse multigrid seed (measured negative in
-`aic_tpu`).
+the contents-derived context, `_finish`, the pass, one whole-volume round
+(`relight_all`), the ray-split pass over several ranks
+(`relight_all_pass_sharded`) and the convergence driver. Left out: the
+coarse multigrid seed (measured negative in `aic_tpu`).
 
 The pass itself is `relight_kernel.relight_pass`: the CUDA kernel for a
 state on the card, its plain PyTorch twin for one on the CPU.
@@ -272,6 +272,29 @@ def relight_all_pass_sharded(state: SpaceState, ctx: RelightCtx, mesh) -> torch.
     incoming = comm.all_reduce(incoming, mesh)
     total_w = comm.all_reduce(total_w, mesh)
     return _finish(ctx, incoming + ctx.incoming0, total_w)
+
+
+def _apply_pass(state: SpaceState, new_light: torch.Tensor):
+    """Commit a pass (`aic_tpu` dense.py:512): the new light, the six
+    neighbours of every cube whose light moved by more than one step
+    marked dirty at that difference (apply_light_update, updater.rs:289),
+    and the stats as tensors."""
+    diff = lightpack.difference_priority(state.light, new_light)
+    bump = torch.where(diff > 1, torch.clamp(diff, max=255), 0).to(torch.uint8)
+    dirty = torch.zeros_like(state.light_dirty)
+    for f in range(6):
+        dirty = torch.maximum(dirty, _shift(bump, faces.FACE_NORMALS[f]))
+    stats = dict(updated=diff.numel(), max_diff=diff.max(), queue_remaining=(dirty > 0).sum())
+    return dataclasses.replace(state, light=new_light, light_dirty=dirty), stats
+
+
+def relight_all(state: SpaceState, ctx: RelightCtx | None = None):
+    """One whole-volume relight round (`aic_tpu` dense.py:555): K2's full
+    pass on the card, its plain version on the CPU, committed by
+    `_apply_pass`. Returns (state, stats)."""
+    if ctx is None:
+        ctx = build_relight_ctx(state)
+    return _apply_pass(state, relight_all_pass(state, ctx))
 
 
 def _overrelax(light, new_light, diff: int, w: float):

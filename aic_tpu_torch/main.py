@@ -50,6 +50,19 @@ import zlib
 import numpy as np
 
 
+def build_template(name: str, seed: int = 0, size: int | None = None):
+    """The template's Space (`aic_tpu` main.py:23); an unknown name exits
+    with the names there are."""
+    from .content import TemplateParameters, build_template_space
+
+    try:
+        return build_template_space(name, TemplateParameters(seed=seed, size=size))
+    except KeyError:
+        from .content import TEMPLATE_NAMES
+
+        raise SystemExit(f"unknown template {name!r}; available: {', '.join(TEMPLATE_NAMES)}")
+
+
 def default_camera(space, width, height, options):
     """The JAX frontend's camera: at the spawn point, looking at the
     centre of the bounds.

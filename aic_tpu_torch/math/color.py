@@ -1,15 +1,29 @@
 """Color math (layer 0): sRGB encoding, torch port of `aic_tpu/math/color.py`.
 
-Only what the port calls is here: `linear_to_srgb8` for the frame
-finish, `luminance` for exposure and the ASCII print, `composite_over`
-for the renderer's layers, and the numpy twins that host content code
-and the renderer's NO_WORLD fill call.
+Every public function of `aic_tpu`'s module, on tensors of any batch
+shape, and the numpy twins that host content code and the renderer's
+NO_WORLD fill call.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def nonneg(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, min=0.0)
+
+
+def clamp01(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, 0.0, 1.0)
+
+
+def reflect(rgba: torch.Tensor, illumination: torch.Tensor) -> torch.Tensor:
+    """Light reflected by a surface: rgb * illumination * alpha
+    (color.rs:707 `Rgba::reflect`). `rgba` is (..., 4), `illumination`
+    (..., 3); returns (..., 3)."""
+    return rgba[..., :3] * illumination * rgba[..., 3:4]
 
 
 def srgb_encode(c: torch.Tensor) -> torch.Tensor:
@@ -41,6 +55,20 @@ def composite_over(light, transmittance, surface_light, surface_transmittance):
 def linear_to_srgb8(rgb: torch.Tensor) -> torch.Tensor:
     """float linear components → u8 sRGB (color.rs:1049)."""
     return torch.clamp(torch.round(srgb_encode(rgb) * 255.0), 0, 255).to(torch.uint8)
+
+
+def srgb_decode(c: torch.Tensor) -> torch.Tensor:
+    """sRGB → linear for color components (color.rs:1066)."""
+    c = nonneg(c)
+    return torch.where(
+        c <= 0.04045,
+        c * (25.0 / 323.0),
+        torch.pow((200.0 * c + 11.0) / 211.0, 12.0 / 5.0),
+    )
+
+
+def srgb8_to_linear(rgb8: torch.Tensor) -> torch.Tensor:
+    return srgb_decode(torch.as_tensor(rgb8).to(torch.float32) / 255.0)
 
 
 def np_srgb8_to_linear(rgb8) -> np.ndarray:

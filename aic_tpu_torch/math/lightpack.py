@@ -60,6 +60,22 @@ def decode_rgb(texel: torch.Tensor) -> torch.Tensor:
     return decode_scalar(texel[..., :3])
 
 
+def decode_with_ao(texel: torch.Tensor) -> torch.Tensor:
+    """(..., 4) texel → (..., 4) [r, g, b, weight] (data.rs:146
+    `value_with_ambient_occlusion`): weight 1 for Visible, 0.25 for
+    Opaque (the ambient-occlusion fudge), 0 otherwise."""
+    status = texel[..., 3]
+    weight = torch.where(
+        status == STATUS_VISIBLE, 1.0, torch.where(status == STATUS_OPAQUE, 0.25, 0.0)
+    ).to(torch.float32)
+    return torch.cat([decode_rgb(texel), weight[..., None]], dim=-1)
+
+
+def valid(texel: torch.Tensor) -> torch.Tensor:
+    """Whether the stored light value is meaningful (data.rs:127)."""
+    return texel[..., 3] == STATUS_VISIBLE
+
+
 def difference_priority(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Max abs component difference incl. status flip (data.rs:193).
 

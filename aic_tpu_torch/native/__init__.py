@@ -100,6 +100,18 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def native_available() -> bool:
+    """Whether every native library builds and loads here (`aic_tpu`
+    native/__init__.py:124). A failed build is not remembered: a caller
+    that needs the library then raises with the compiler's output."""
+    try:
+        for name in CXX_FLAGS:
+            load(name)
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def _cp(a: np.ndarray, ty):
     return a.ctypes.data_as(ctypes.POINTER(ty))
 

@@ -73,6 +73,11 @@ class SlabSharded:
     _trace: tuple | None = None
 
     @property
+    def n_devices(self) -> int:
+        """The ranks the world is split over (`aic_tpu` slab.py:76)."""
+        return self.mesh.world
+
+    @property
     def x0(self) -> int:
         """The slab's first plane, counted from the world's lower face."""
         return self.mesh.rank * self.slab_x

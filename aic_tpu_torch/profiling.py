@@ -1,8 +1,8 @@
 """Per-phase wall timings of the step loop.
 
-Port of the span timer of `aic_tpu/profiling.py` (`SpanStats`,
-`Profiler`); its JAX device-trace wrapper is not carried over
-(`torch.profiler` takes its place where a device trace is wanted).
+Port of `aic_tpu/profiling.py`: the span timer (`SpanStats`,
+`Profiler`) and `device_trace`, a device profile written to a directory
+(`torch.profiler` where `aic_tpu` starts `jax.profiler`).
 
 A span measures the host clock. Work a span queues on the card runs
 after the host leaves it unless `sync` is set: a callable (e.g.
@@ -68,3 +68,27 @@ class Profiler:
 
     def reset(self) -> None:
         self.spans.clear()
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """Capture a device profile of the block (`aic_tpu` profiling.py:73,
+    `jax.profiler.start_trace`): `torch.profiler` over the host and, where
+    there is a card, the CUDA kernels, written into `log_dir` as a Chrome
+    trace (`trace.json`, for chrome://tracing or Perfetto)."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -34,6 +34,19 @@ SKIP_SHIFT = 18
 SKIP_MASK = 63
 RES_SHIFT = 24
 
+
+
+def unpack_cell(cell: torch.Tensor):
+    """A packed cell's fields (`aic_tpu` accel.py:37): (palette or voxel
+    index, visible, voxel block, skip distance, log2 of the resolution)."""
+    idx = cell & 0xFFFF
+    visible = (cell & VISIBLE_BIT) != 0
+    is_voxel = (cell & VOXEL_BIT) != 0
+    skip = (cell >> SKIP_SHIFT) & SKIP_MASK
+    res_log2 = (cell >> RES_SHIFT) & 7
+    return idx, visible, is_voxel, skip, res_log2
+
+
 #: Cells per brick edge; a brick row holds 4³ = 64 cells.
 BRICK = 4
 

@@ -2,7 +2,15 @@
 
 from .sky import DAY_SKY_COLOR, Sky
 from .space import Space, SpacePhysics
-from .state import BlockTables, SpaceState, state_from_numpy, state_to_numpy
+from .state import (
+    BlockTables,
+    SpaceState,
+    lookup_contents,
+    lookup_light,
+    scatter_set_cubes,
+    state_from_numpy,
+    state_to_numpy,
+)
 
 __all__ = [
     "DAY_SKY_COLOR",
@@ -11,6 +19,9 @@ __all__ = [
     "SpacePhysics",
     "BlockTables",
     "SpaceState",
+    "lookup_contents",
+    "lookup_light",
+    "scatter_set_cubes",
     "state_from_numpy",
     "state_to_numpy",
 ]

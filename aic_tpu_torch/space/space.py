@@ -40,6 +40,10 @@ class SpacePhysics:
     light_enabled: bool = True
     light_max_distance: int = 30  # physics.rs:103 LightPhysics::Rays default
 
+    @staticmethod
+    def default_for_light_test() -> "SpacePhysics":
+        return SpacePhysics()
+
 
 class Space:
     def __init__(

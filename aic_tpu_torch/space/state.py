@@ -121,6 +121,14 @@ class SpaceState:
     def device(self) -> torch.device:
         return self.contents.device
 
+    @property
+    def size(self) -> tuple[int, int, int]:
+        return tuple(self.contents.shape)
+
+    def cube_to_index(self, cubes: torch.Tensor) -> torch.Tensor:
+        """World cube coords (..., 3) → array indices (..., 3)."""
+        return cubes - torch.as_tensor(self.lower, dtype=cubes.dtype, device=cubes.device)
+
     def to(self, device) -> "SpaceState":
         return dataclasses.replace(_to(self, device), tables=self.tables.to(device))
 

@@ -1,8 +1,11 @@
 """Text rendering for voxel text blocks and the VUI.
 
-Port of `aic_tpu/text` (its `__init__` copied unchanged). The port's
-`font.py` reads PIL's masks from a vendored table and `sysfont.py`
-decodes the vendored atlas without an imaging library.
+Port of `aic_tpu/text`. No module here imports an imaging library:
+`font.py` composes PIL's default font glyph by glyph from a vendored
+glyph table (`assets/pil_glyphs.json`: each Latin-1 glyph's grey
+coverage, offset and advance, taken from Pillow by
+`tools/pil_glyph_table.py`), and `sysfont.py` decodes the vendored
+system-16 atlas with zlib.
 
 Two layers, mirroring the reference's `block/text.rs` + `text/{font,
 layout,positioning}.rs`:
@@ -12,8 +15,9 @@ layout,positioning}.rs`:
   `Positioning` (x / line_y / z), voxel-scale layout bounds, outlines,
   and multiblock output. Conformance-tested pixel-for-pixel against the
   reference's text test planes (tests/test_text_layout.py).
-- `font.py` — the legacy PIL-raster path (font="pil" on TextPrimitive),
-  kept as a documented deviation for earlier content.
+- `font.py` — the legacy PIL-font path (font="pil" on TextPrimitive),
+  kept as a documented deviation for earlier content; equal to
+  `aic_tpu`'s PIL drawing bit for bit.
 """
 
 from .font import measure_text, rasterize_text, text_tile

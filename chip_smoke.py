@@ -110,7 +110,10 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    timed alone. On the card: a toolbar click selects its slot, the
    composite equals `composite_over` of the layers rendered apart, `p`
    opens the paused page (rendered), `cycle_setting` reaches the
-   options. The WebSocket server on port 0: 8 inputs carrying `t`, each
+   options; text made at run time, composed from the vendored glyph
+   table (a notification titled "Saved <seeded name>.json", then a
+   seeded three-line Latin-1 message page), each in a 1920x1080 frame
+   with its text voxels counted. The WebSocket server on port 0: 8 inputs carrying `t`, each
    timed to the frame echoing it (`echo_t`), render_ms, the PNG's encode
    time and bytes, a pushed PNG decoded (1920x1080 RGBA), `/info` and
    `/frame.png`. The stepped universe saved through `FileWhence` and
@@ -158,15 +161,27 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    equal up to the importer's palette renumbering, packed light equal)
    and opened by `main FILE --graphics print` as a subprocess. The ranks' launches (and main's) are summed and
    must include K2's full and listed kernels.
-12. the kernels line (JSON; K1's row from demo-city's frame, its phases'
+12. reference — the reference-procedure relight
+   (`refproc.evaluate_light_reference`, each bucket one K2 listed launch
+   over 64 rows) and one whole-volume round (`dense.relight_all`, K2's
+   full pass), the counters set to 0 before and read after: cornell-box
+   10 against the C++ `ref_relight_state` (statuses equal, packed light
+   within 4 steps, mean decoded difference under 0.01,
+   tests/test_ref_relight.py's criteria); cornell-box 32 timed (seconds,
+   rounds, listed launches and the share of the run inside them by CUDA
+   events) beside the card's `evaluate_light_dense` and the C++ relight;
+   one round's launch against the plain walk and `relight_all` against
+   the plain pass.
+13. the kernels line (JSON; K1's row from demo-city's frame, its phases'
    launches summed; K2's listed mode as `relight_batch`, from the atrium
    step's batch that walked the most rows; launches summed over every
    main path, demo-city's, the render phase's, the session's, the
-   record phase's and the multi-GPU ranks' included), the `nvidia-smi`
-   line, and the last line {"ok": true, "device": {...}}.
+   record phase's, the multi-GPU ranks' and the reference phase's
+   included), the `nvidia-smi` line, and the last line {"ok": true,
+   "device": {...}}. PIL must not have been imported by then.
 
 Needs CUDA and the `aic_tpu_torch` package beside this file; imports no
-JAX.
+JAX and no PIL.
 """
 
 from __future__ import annotations
@@ -1657,8 +1672,8 @@ CITY_TICKS = 60
 
 class timed_calls:
     """Within the block, the host-clock seconds spent in `owner.name`
-    (a function or method), synchronized at its end; the list holds one
-    entry a call."""
+    (a function or method), synchronized at its end where CUDA is up; the
+    list holds one entry a call."""
 
     def __init__(self, owner, name):
         self.owner, self.name, self.calls = owner, name, []
@@ -1689,7 +1704,7 @@ def city_world(dev, opts, reset_counts, read_counts) -> dict:
     """Demo-city (`aic_tpu`'s showcase world, 96x28x96 with its exhibits)
     through the port's entry points: `build_universe("demo-city")` on the
     card (the host content build and the snapshot timed apart; every text
-    mask from the vendored table); K2 (full and light-only) held against
+    mask composed from the vendored glyph table); K2 (full and light-only) held against
     the plain pass and K1 against its twin on the 1920x1080 rays of
     `main.default_camera`, every field, on the built state (its R32 octant
     rows and wide classify pages); then, with the launch counters set to 0,
@@ -1716,7 +1731,7 @@ def city_world(dev, opts, reset_counts, read_counts) -> dict:
     from aic_tpu_torch.text import font
 
     font.rasterize_text.cache_clear()
-    with timed_calls(Space, "snapshot") as snaps, timed_calls(font, "rasterize_pil") as drawn, \
+    with timed_calls(Space, "snapshot") as snaps, timed_calls(font, "compose") as composed, \
             timed_calls(exhibits, "place_exhibit") as placed:
         t0 = time.perf_counter()
         u = build_universe("demo-city", TemplateParameters(seed=0, size=96), device=dev)
@@ -1725,8 +1740,8 @@ def city_world(dev, opts, reset_counts, read_counts) -> dict:
     sp, st = u.spaces["world"], u.states["world"]
     if tuple(st.contents.shape) != (96, 28, 96):
         fail(f"demo-city: contents {tuple(st.contents.shape)}, not 96x28x96")
-    if drawn:
-        fail(f"demo-city: {len(drawn)} strings were drawn with PIL, not read from the vendored table")
+    if not composed:
+        fail("demo-city: no string was composed from the glyph table: its signs have no text")
     if not tk.megakernel_fits(st):
         fail("demo-city: its megakernel tables do not fit: it would not take K1")
     ctx = tk.get_bitmask_ctx2(st)
@@ -1736,8 +1751,8 @@ def city_world(dev, opts, reset_counts, read_counts) -> dict:
           f"{build_s - sum(snaps):.3f} s, snapshot {sum(snaps):.3f} s); palette {sp.palette_len()}, "
           f"{int((st.tables.voxel_index >= 0).sum())} voxel-block entries, {len(placed)} exhibits placed; "
           f"K1 tables rows {tuple(ctx.rows.shape)} pages {tuple(ctx.pages.shape)} (wide) page_idx "
-          f"{tuple(ctx.page_idx.shape)}, R32 octant rows; text masks: "
-          f"{font.rasterize_text.cache_info().misses} strings, all from the vendored table, none drawn by PIL")
+          f"{tuple(ctx.page_idx.shape)}, R32 octant rows; text masks: {len(composed)} strings composed glyph "
+          f"by glyph from the vendored table in {sum(composed) * 1e3:.1f} ms")
 
     relight = compare_relight(st, "demo-city")
     cam = default_camera(sp, 1920, 1080, opts)
@@ -2182,6 +2197,73 @@ def _pixel_of(cam, point) -> tuple[int, int]:
     return int((ndc[0] + 1.0) / 2.0 * vp.width), int((1.0 - ndc[1]) / 2.0 * vp.height)
 
 
+#: Seeds of the text the session phase makes at run time.
+RUNTIME_TEXT_SEED = 14
+LATIN1 = [chr(c) for c in list(range(0x20, 0x7F)) + list(range(0xA0, 0x100))]
+
+
+def _text_voxels(space, cubes) -> int:
+    """Opaque voxels of the text blocks at `cubes` of a UI space."""
+    n = 0
+    for cube in cubes:
+        ev = space.evaluated_block_at(cube)
+        if ev.attributes.display_name.startswith("text["):
+            n += int((np.asarray(ev.voxels.color)[..., 3] > 0).sum())
+    return n
+
+
+def runtime_text(session, full) -> str:
+    """Text made at run time, composed from the vendored glyph table with
+    no PIL: a notification titled "Saved <seeded random name>.json" in the
+    HUD, then `show_message` with a seeded three-line Latin-1 message, each
+    in one 1920x1080 `render_with_ui` frame (synchronized, host clock).
+    Fails if the notification's row or the message page holds no text
+    voxel. Dismisses both after."""
+    import torch
+    from aic_tpu_torch.text import font
+
+    rng = np.random.default_rng(RUNTIME_TEXT_SEED)
+    name = "".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz0123456789-_"), 12)) + ".json"
+    message = "\n".join("".join(rng.choice(LATIN1, int(rng.integers(12, 28)))) for _ in range(3))
+    with timed_calls(font, "compose") as composed:
+        note = session.show_notification(f"Saved {name}")
+        session.refresh_ui()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        noted = session.render_with_ui()
+        torch.cuda.synchronize()
+        note_ms = (time.perf_counter() - t0) * 1e3
+        sp = session.ui_space
+        lo, size = sp.bounds.lower, sp.bounds.size
+        row = [(lo[0] + x, lo[1] + size[1] - 2, lo[2]) for x in range(size[0])]
+        note_voxels = _text_voxels(sp, row)
+        session.show_message(message)
+        page = session.pages.current()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shown = session.render_with_ui()
+        torch.cuda.synchronize()
+        message_ms = (time.perf_counter() - t0) * 1e3
+        psp = page.space
+        plo, psize = psp.bounds.lower, psp.bounds.size
+        message_voxels = _text_voxels(psp, [(plo[0] + x, plo[1] + y, plo[2] + z) for x in range(psize[0])
+                                            for y in range(psize[1]) for z in range(psize[2])])
+    if note_voxels <= 0:
+        fail(f"session: the notification 'Saved {name}' drew no text voxel in the HUD's row")
+    if page is None or page.id != "message" or message_voxels <= 0:
+        fail(f"session: show_message opened {page and page.id} with {message_voxels} text voxels")
+    check_image(noted.data, full, "session notification frame")
+    check_image(shown.data, full, "session message frame")
+    session.back()
+    note.dismiss()
+    session.refresh_ui()
+    if session.pages.current() is not None:
+        fail("session: back from the message page left a page open")
+    return (f"notification {('Saved ' + name)!r}: {note_voxels} text voxels in the HUD's row, its 1920x1080 frame "
+            f"{note_ms:.1f} ms; message {message!r}: {message_voxels} text voxels on the page, its frame "
+            f"{message_ms:.1f} ms; {len(composed)} strings composed glyph by glyph in {sum(composed) * 1e3:.2f} ms")
+
+
 def session_world(dev, smi, reset_counts, read_counts) -> dict:
     """The interactive layer's main path: demo-city (seed 0, size 96)
     from `build_universe`, relit by `evaluate_light`, played by a
@@ -2349,6 +2431,7 @@ def session_world(dev, smi, reset_counts, read_counts) -> dict:
           f"composite_over of the world and UI layers rendered apart, bit for bit; `p` opened the paused page "
           f"(traced by {page_tracer}, {float((paused.data != together).any(-1).mean()):.3f} of the pixels changed); "
           f"cycle_setting(fog) {fog} -> {session.options.fog}")
+    phase("session", f"text made at run time, no PIL ({smi}): {runtime_text(session, full)}")
 
     # The server: WebSocket inputs carrying `t`, each timed to the frame
     # whose metadata echoes it.
@@ -2744,6 +2827,175 @@ def record_world(dev, smi, reset_counts, read_counts, session) -> dict:
               f"{card_s * 1e3:.3f} ms, {passes} passes (fall-back to w = 1: {fell}); launches (both relights) "
               f"{read_counts()}")
     return dict(counts=counts, ref=ref)
+
+
+#: The reference phase (12): tests/test_ref_relight.py's criteria for
+#: the reference-procedure relight against the C++ one.
+REF_MAX_STEPS = 4
+REF_MEAN_DECODED = 0.01
+REF_CHECKED = 10  # cornell-box size held against the C++ relight
+REF_TIMED = 32  # cornell-box size timed
+REF_HELD_ROUND = 10  # the round whose listed launch is held against the plain walk
+
+
+class timed_launches:
+    """Within the block, CUDA events around every call of
+    `owner.name` (K2's listed launch as `light/update.py` calls it): the
+    device ms between the event before and the one after each call, read
+    after a synchronization."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.events = owner, name, []
+
+    def __enter__(self):
+        import torch
+
+        real = self.real = getattr(self.owner, self.name)
+        events = self.events
+
+        def timed(*args, **kwargs):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = real(*args, **kwargs)
+            e1.record()
+            events.append((e0, e1))
+            return out
+
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.real)
+        return False
+
+    def ms(self) -> list:
+        import torch
+
+        torch.cuda.synchronize()
+        return [e0.elapsed_time(e1) for e0, e1 in self.events]
+
+
+def reference_world(dev, smi, reset_counts, read_counts) -> dict:
+    """The reference-procedure relight (`light/refproc.py`
+    `evaluate_light_reference`: the priority-bucket queue the reference's
+    goldens are lit by, each bucket relit by one launch of K2's listed
+    kernel over 64 rows) and one whole-volume round (`dense.relight_all`,
+    K2's full pass), the counters set to 0 before and read after.
+    Cornell-box REF_CHECKED on the card against the C++ `ref_relight_state`
+    (statuses equal, packed light within REF_MAX_STEPS, mean decoded
+    difference under REF_MEAN_DECODED); cornell-box REF_TIMED timed:
+    seconds, rounds, listed launches and the share of the run inside them
+    (CUDA events around each launch), beside the card's
+    `evaluate_light_dense` and the C++ relight of the same world. Then
+    round REF_HELD_ROUND's launch against the plain walk on its batch and
+    `relight_all`'s pass against the plain pass (within one step,
+    statuses equal); those launches are not counted."""
+    import torch
+    from aic_tpu_torch.content import cornell_box
+    from aic_tpu_torch.light import dense, update
+    from aic_tpu_torch.light import relight_kernel as rk
+    from aic_tpu_torch.light.refproc import evaluate_light_reference, fast_evaluate_seed
+    from aic_tpu_torch.math import lightpack
+    from aic_tpu_torch.native import ref_relight_state
+
+    reset_counts()
+    st10 = cornell_box(REF_CHECKED).snapshot(device=dev)
+    t0 = time.perf_counter()
+    lit = evaluate_light_reference(st10)
+    torch.cuda.synchronize()
+    card10_s = time.perf_counter() - t0
+    got = lit.light.cpu().numpy()
+    cpp_s, cpp_updates, want = ref_relight_state(st10, return_light=True)
+    if not (got[..., 3] == want[..., 3]).all():
+        fail(f"reference cornell-box {REF_CHECKED}: statuses differ from the C++ relight in "
+             f"{int((got[..., 3] != want[..., 3]).sum())} cubes")
+    vis = want[..., 3] == lightpack.STATUS_VISIBLE
+    steps = int(np.abs(got[..., :3].astype(int) - want[..., :3].astype(int))[vis].max())
+    table = lightpack.DECODE_TABLE
+    mean = float(np.abs(table[got[..., :3]] - table[want[..., :3]])[vis].mean())
+    if steps > REF_MAX_STEPS or mean >= REF_MEAN_DECODED:
+        fail(f"reference cornell-box {REF_CHECKED}: {steps} packed steps (limit {REF_MAX_STEPS}), mean decoded "
+             f"difference {mean:.5f} (limit {REF_MEAN_DECODED}) against the C++ relight")
+    phase("reference", f"cornell-box {REF_CHECKED} {tuple(st10.contents.shape)} on the card ({smi}): "
+          f"evaluate_light_reference {card10_s:.3f} s; against the C++ ref_relight_state ({cpp_s:.3f} s, "
+          f"{cpp_updates} updates): statuses equal, {steps} packed steps at most (limit {REF_MAX_STEPS}), "
+          f"mean decoded difference {mean:.5f} (limit {REF_MEAN_DECODED}) over {int(vis.sum())} visible cubes")
+
+    st32 = cornell_box(REF_TIMED).snapshot(device=dev)
+    rounds, held = [], []
+    real_batch = update.relight_batch
+
+    def counted(state, cubes, valid):
+        rounds.append(1)
+        if len(rounds) == REF_HELD_ROUND:
+            held.append((state, cubes.clone(), valid.clone()))
+        return real_batch(state, cubes, valid)
+
+    before = rk.LAUNCHES_LISTED
+    update.relight_batch = counted
+    try:
+        with timed_launches(update, "relight_listed_cuda") as launches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            evaluate_light_reference(st32)
+            torch.cuda.synchronize()
+            card32_s = time.perf_counter() - t0
+    finally:
+        update.relight_batch = real_batch
+    n_listed = rk.LAUNCHES_LISTED - before
+    launch_ms = launches.ms()
+    if n_listed != len(rounds) or n_listed != len(launch_ms):
+        fail(f"reference cornell-box {REF_TIMED}: {len(rounds)} rounds but {n_listed} listed launches "
+             f"({len(launch_ms)} timed)")
+    t0 = time.perf_counter()
+    dense_st, passes = dense.evaluate_light_dense(cornell_box(REF_TIMED).snapshot(device=dev))
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    cpp32_s, cpp32_updates = ref_relight_state(st32)
+    phase("reference", f"cornell-box {REF_TIMED} {tuple(st32.contents.shape)} on the card ({smi}): "
+          f"evaluate_light_reference {card32_s:.3f} s, {len(rounds)} rounds ({card32_s / len(rounds) * 1e3:.3f} ms "
+          f"a round), {n_listed} K2 listed launches, {sum(launch_ms):.3f} ms inside them (CUDA events around each "
+          f"launch; mean {float(np.mean(launch_ms)):.4f} ms, max {max(launch_ms):.4f} ms): "
+          f"{sum(launch_ms) / (card32_s * 1e3):.2%} of the run; the card's evaluate_light_dense "
+          f"{dense_s * 1e3:.3f} ms, {passes} passes; the C++ ref_relight_state on the host CPU {cpp32_s:.3f} s, "
+          f"{cpp32_updates} updates")
+
+    # One whole-volume round on the seeded world, counted.
+    seeded, _ = fast_evaluate_seed(st32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    relit, stats = dense.relight_all(seeded)
+    torch.cuda.synchronize()
+    all_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    for name in ("relight_batch", "relight_pass"):
+        if counts[name] <= 0:
+            fail(f"reference main path: {name} was not launched: {counts}")
+
+    # The held round's launch against the plain walk on its batch.
+    st_h, cubes, valid = held[0]
+    a = update.relight_batch_cuda(st_h, cubes, valid).cpu().numpy().astype(np.int32)
+    b = update.relight_batch_plain(st_h, cubes, valid).cpu().numpy().astype(np.int32)
+    v = valid.cpu().numpy()
+    batch_err = int(np.abs(a[v, :3] - b[v, :3]).max())
+    if batch_err > RELIGHT_MAX_STEP or (a[v, 3] != b[v, 3]).any() or a[~v].any():
+        fail(f"reference round {REF_HELD_ROUND}: K2 listed differs from the plain walk by {batch_err} steps "
+             f"or in a status or a padding row")
+    # relight_all's pass against the plain pass.
+    ctx = dense.build_relight_ctx(seeded)
+    inc, tot = rk.relight_pass_plain(seeded.contents, lightpack.decode_rgb(seeded.light).contiguous(),
+                                     seeded.tables.light_face_rows, ctx)
+    plain = dense._finish(ctx, inc + ctx.incoming0, tot).cpu().numpy().astype(np.int32)
+    got = relit.light.cpu().numpy().astype(np.int32)
+    all_err = int(np.abs(got[..., :3] - plain[..., :3]).max())
+    if all_err > RELIGHT_MAX_STEP or (got[..., 3] != plain[..., 3]).any():
+        fail(f"reference relight_all: K2's pass differs from the plain pass by {all_err} steps or in a status")
+    phase("reference", f"relight_all cornell-box {REF_TIMED} {all_ms:.3f} ms (host clock, synchronized; max change "
+          f"{int(stats['max_diff'])} steps, {int(stats['queue_remaining'])} cubes marked dirty); round "
+          f"{REF_HELD_ROUND}'s K2 listed launch ({int(v.sum())} valid of {len(v)} rows) against the plain walk: "
+          f"{batch_err} steps at most, statuses equal; relight_all against the plain pass: {all_err} steps at "
+          f"most, statuses equal; launches {counts}")
+    return dict(counts=counts)
 
 
 #: The multi-GPU phase (11). Four ranks share card 0 over the gloo
@@ -3162,13 +3414,11 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    try:
-        import PIL
-        pil = f"PIL {PIL.__version__} importable"
-    except ImportError:
-        pil = "PIL not importable"
+    import importlib.util
+
+    pil = "PIL importable" if importlib.util.find_spec("PIL") is not None else "PIL not importable"
     phase("device", f"{kind}; torch {torch.__version__} cuda {torch.version.cuda}; nvidia-smi: {smi}; "
-          f"{pil} (the port reads its text masks from a vendored table either way)")
+          f"{pil} (the port composes text from its vendored glyph table either way, and never imports it)")
 
     # 2. build
     t0 = time.perf_counter()
@@ -3359,11 +3609,18 @@ def main() -> None:
     # 11. the multi-GPU paths and the reference's .alliscubesjson.
     multi = multi_gpu_world(dev, smi, opts, universe)
 
+    # 12. the reference-procedure relight and one whole-volume round.
+    reference = reference_world(dev, smi, reset_counts, read_counts)
+
+    if "PIL" in sys.modules:
+        fail("PIL was imported during the run: the port draws text from its glyph table alone")
     counts = {k: atrium_counts[k] + plaza_counts[k] + city["counts"][k] + rendered["counts"][k]
-              + session["counts"][k] + recorded["counts"][k] + multi["counts"].get(k, 0) for k in atrium_counts}
+              + session["counts"][k] + recorded["counts"][k] + multi["counts"].get(k, 0)
+              + reference["counts"][k] for k in atrium_counts}
     counts["relight_batch"] = (sum(st["counts"]["relight_batch"] for st in steps.values())
                                + city["counts"]["relight_batch"] + session["counts"]["relight_batch"]
-                               + recorded["counts"]["relight_batch"] + multi["counts"].get("relight_batch", 0))
+                               + recorded["counts"]["relight_batch"] + multi["counts"].get("relight_batch", 0)
+                               + reference["counts"]["relight_batch"])
     rows = [
         ("trace_megakernel", "aic_tpu_torch/csrc/trace.cu", "aic_tpu/raytrace/pallas_trace.py:1140", city["k1"]),
         ("relight_pass", "aic_tpu_torch/csrc/relight.cu", "aic_tpu/light/pallas_relight.py:338",

@@ -792,3 +792,51 @@ def test_record_frames_take_the_kernels(cuda_device, tmp_path):
     data = path.read_bytes()
     assert data.count(b"fcTL") == 3
     assert decode_png(data).shape == (64, 96, 4)
+
+
+def test_reference_bucket_listed_launch_matches_plain(cuda_device, monkeypatch):
+    """`evaluate_light_reference` on the card relights each bucket with
+    one launch of K2's listed kernel over 64 rows; the first buckets of
+    cornell-box 10 against the plain walk on the same batch: valid rows
+    within one step, statuses equal, padding rows 0."""
+    from aic_tpu_torch.light import refproc, update
+
+    real, batches = update.relight_batch, []
+
+    def recorded(state, cubes, valid):
+        if len(batches) < 4:
+            batches.append((state, cubes.clone(), valid.clone()))
+        return real(state, cubes, valid)
+
+    monkeypatch.setattr(update, "relight_batch", recorded)
+    before = relight_kernel.LAUNCHES_LISTED
+    refproc.evaluate_light_reference(cornell_box(10).snapshot(device=cuda_device), max_rounds=4)
+    assert relight_kernel.LAUNCHES_LISTED - before == len(batches) == 4
+    for st, cubes, valid in batches:
+        assert cubes.shape == (64, 3) and 0 < int(valid.sum()) <= 32
+        before = relight_kernel.LAUNCHES_LISTED
+        got = real(st, cubes, valid)
+        assert relight_kernel.LAUNCHES_LISTED == before + 1
+        want = update.relight_batch_plain(st, cubes, valid)
+        a, b = got.cpu().numpy().astype(np.int32), want.cpu().numpy().astype(np.int32)
+        v = valid.cpu().numpy()
+        assert np.abs(a[v, :3] - b[v, :3]).max() <= 1
+        np.testing.assert_array_equal(a[v, 3], b[v, 3])
+        assert not a[~v].any()
+
+
+def test_relight_all_on_the_card_equals_plain(cuda_device):
+    """`relight_all` on the card is one launch of K2's full pass; its light
+    is within one step of the plain pass's on a CPU copy, statuses equal,
+    and its dirty marks are those the same commit gives the card's light."""
+    st, _ = fast_evaluate_seed(cornell_box(16).snapshot(device=cuda_device))
+    before = relight_kernel.LAUNCHES
+    got, stats = dense.relight_all(st)
+    assert relight_kernel.LAUNCHES == before + 1
+    want, _ = dense.relight_all(st.to("cpu"))
+    a, b = got.light.cpu().numpy().astype(np.int32), want.light.numpy().astype(np.int32)
+    assert np.abs(a[..., :3] - b[..., :3]).max() <= 1
+    np.testing.assert_array_equal(a[..., 3], b[..., 3])
+    again, _ = dense._apply_pass(st.to("cpu"), got.light.cpu())
+    np.testing.assert_array_equal(got.light_dirty.cpu().numpy(), again.light_dirty.numpy())
+    assert int(stats["updated"]) == st.contents.numel()

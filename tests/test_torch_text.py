@@ -1,8 +1,21 @@
 """The port's text modules (aic_tpu_torch.text) against `aic_tpu.text`.
 
-- `rasterize_text`, `text_tile` and `text_tile_count` for every string of
-  the port's vendored mask table: equal to `aic_tpu`'s, which draws them
-  with PIL here.
+- `rasterize_text`, `measure_text`, `text_tile_count` and `text_tile`,
+  composed from the vendored glyph table with PIL blocked on the port's
+  side (`sys.modules["PIL"] = None`), against `aic_tpu`'s PIL drawing of
+  the same strings, bit for bit (no tolerance): every string of the
+  93-string mask table the port read before the glyph table
+  (`MASK_TABLE_STRINGS`), every character of the repertoire, every
+  ordered pair of printable ASCII, 2,000 seeded random Latin-1 strings of
+  1-40 characters, and multi-line and run-time strings. `text_tile` is
+  compared at resolutions 8, 16 and 32, but for the pairs and the random
+  strings at 16 alone (the UI's and the exhibits' resolution): their
+  tiles at 8 and 32 would add half a minute to the file in the Python
+  pixel loop both packages share. Their tile counts are compared at all
+  three.
+- A character outside the repertoire raises `TextNotInTable`, naming it;
+  a fresh interpreter that imports every module of the port and draws
+  text never imports PIL.
 - The system-16 atlas decoded with zlib (no imaging library) against
   `aic_tpu`'s PIL decode of the same file: equal.
 - `compute_layout` and the voxels of `evaluate(Block(TextPrimitive))` for
@@ -12,11 +25,10 @@
   that atlas, so `aic_tpu` is given the same file here (its `FONTS` entry
   pointed at `aic_tpu/text/assets/`, as with the checkout present). The
   body-text atlas is vendored by neither: both packages draw PIL's glyphs.
-- A string outside the table raises, naming it, when PIL cannot be
-  imported.
 """
 
-import json
+import os
+import subprocess
 import sys
 
 import numpy as np
@@ -33,8 +45,84 @@ import aic_tpu_torch.text.sysfont as tsysfont
 from aic_tpu.math.grid import GridAab as JGridAab
 from aic_tpu_torch.math.grid import GridAab as TGridAab
 
-with open(tfont.TABLE_PATH) as f:
-    TABLE_STRINGS = sorted(json.load(f)["masks"])
+#: The strings of the whole-string mask table the port read before it
+#: composed text from glyphs (`text/assets/pil_text_masks.json`): the
+#: port's content and UI strings of that time.
+MASK_TABLE_STRINGS = [
+    " ", "   L      toggle mouselook", "   P      toggle pause", "  0-9     select toolbar item",
+    "  E C     fly up/down", "0", "1", "2", "3", "4", "AIC", "About", "About All is Cubes", "Activate",
+    "All is Cubes (TPU edition)", "All is Cubes (TPU)", "Animation", "Arrows    turn", "Back", "Blocks",
+    "ChunkChart", "Collision", "Colors", "Composite", "Controls", "CopyFromSpace", "CustomTool",
+    "Destruction", "EditBlock", "Elevator", "Escape    back / pause", "Glass", "Images", "Inventory",
+    "Jetpack", "Knot", "L-mouse   use first tool", "Misc", "Move", "OK", "Paused", "PlaceBlock",
+    "Progress", "PushPull", "Quit", "R-mouse   use selected tool", "RemoveBlock", "Resolutions", "Resume",
+    "Rotations", "Settings", "Smallest", "Text", "Transparency", "Trees", "UI Blocks",
+    "W A S D   movement", "Zoom", "a voxel world engine re-designed", "antialiasing: False",
+    "antialiasing: True", "atrium", "blank", "bloom_intensity: 0.0", "bloom_intensity: 0.125",
+    "bloom_intensity: 0.25", "cornell-box", "debug_info_text: False", "debug_info_text: True",
+    "demo-city", "dungeon", "fog: abrupt", "fog: compromise", "fog: none", "fog: physical",
+    "for TPU hardware: JAX + Pallas.", "github.com/kpreid/all-is-cubes", "is the reference behavior spec.",
+    "islands", "lighting-bench", "lighting_display: bounce", "lighting_display: coarse",
+    "lighting_display: flat", "lighting_display: linear", "lighting_display: none",
+    "lighting_display: smoothstep", "menger-sponge", "random", "show_ui: False", "show_ui: True",
+    "transparency: surface", "transparency: threshold", "transparency: volumetric",
+]
+
+#: Printable Latin-1, the glyph table's repertoire.
+LATIN1 = [chr(c) for c in list(range(0x20, 0x7F)) + list(range(0xA0, 0x100))]
+ASCII = [chr(c) for c in range(0x20, 0x7F)]
+RANDOM_STRINGS, RANDOM_CHUNK = 2000, 100
+
+
+def random_latin1(chunk: int) -> list:
+    """Strings chunk·RANDOM_CHUNK .. of RANDOM_STRINGS seeded random
+    Latin-1 strings of 1-40 characters."""
+    rng = np.random.default_rng(2024)
+    out = ["".join(rng.choice(LATIN1, int(rng.integers(1, 41)))) for _ in range(RANDOM_STRINGS)]
+    return out[chunk * RANDOM_CHUNK : (chunk + 1) * RANDOM_CHUNK]
+
+
+MULTILINE = [
+    "Saved world-0.json",
+    "Opened demo-city",
+    "Failed to open: [Errno 2] No such file or directory: 'x.json'",
+    "Hello\nworld",
+    "line one\n\nline three",
+    "\n",
+    " \n ",
+    "jÿ_|\nÅ¶ WAVE fi To\ng",
+]
+
+
+def texts(pkg, strings, resolutions) -> dict:
+    """What a package's font module gives for each string: the mask, its
+    size, and the tile count and every tile at each resolution."""
+    out = {}
+    for s in strings:
+        tiles = {}
+        for res in (8, 16, 32):
+            n = pkg.text_tile_count(s, res)
+            tiles[res] = (n, [pkg.text_tile(s, res, (tx, 0)) for tx in range(n + 1)] if res in resolutions else [])
+        out[s] = (pkg.rasterize_text(s), pkg.measure_text(s), tiles)
+    return out
+
+
+def assert_port_draws_as_aic_tpu(monkeypatch, strings, resolutions=(8, 16, 32)):
+    """`aic_tpu`'s results first (PIL draws them), then the port's with
+    PIL blocked and its cache cleared: equal, bit for bit."""
+    want = texts(jfont, strings, resolutions)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    tfont.rasterize_text.cache_clear()
+    got = texts(tfont, strings, resolutions)
+    for s in strings:
+        (gm, gsize, gtiles), (wm, wsize, wtiles) = got[s], want[s]
+        assert gm.dtype == wm.dtype == np.bool_
+        np.testing.assert_array_equal(gm, wm, err_msg=repr(s))
+        assert gsize == wsize, repr(s)
+        for res in (8, 16, 32):
+            assert gtiles[res][0] == wtiles[res][0], (s, res)
+            for tx, (g, w) in enumerate(zip(gtiles[res][1], wtiles[res][1])):
+                np.testing.assert_array_equal(g, w, err_msg=f"{s!r} at {res}, tile {tx}")
 
 
 @pytest.fixture
@@ -55,43 +143,84 @@ def test_table_covers_exhibit_names_and_sign_strings():
     from aic_tpu.content.exhibits import EXHIBITS
 
     assert len(EXHIBITS) == 22
-    assert {e.name for e in EXHIBITS} | {"AIC", "OK"} <= set(TABLE_STRINGS)
+    names = {e.name for e in EXHIBITS} | {"AIC", "OK"}
+    assert names <= set(MASK_TABLE_STRINGS)
+    assert set("".join(names)) <= set(tfont.glyph_table().glyphs)
+    assert sorted(tfont.glyph_table().glyphs) == sorted(LATIN1)
 
 
-@pytest.mark.parametrize("text", TABLE_STRINGS)
-def test_rasterize_and_tiles_match_aic_tpu(text):
-    want = jfont.rasterize_text(text)
-    got = tfont.rasterize_text(text)
-    np.testing.assert_array_equal(got, want)
-    for res in (8, 16, 32):
-        n = jfont.text_tile_count(text, res)
-        assert tfont.text_tile_count(text, res) == n
-        assert tfont.measure_text(text) == jfont.measure_text(text)
-        for tx in range(n + 1):
-            np.testing.assert_array_equal(tfont.text_tile(text, res, (tx, 0)), jfont.text_tile(text, res, (tx, 0)))
+@pytest.mark.parametrize("text", MASK_TABLE_STRINGS)
+def test_rasterize_and_tiles_match_aic_tpu(monkeypatch, text):
+    assert_port_draws_as_aic_tpu(monkeypatch, [text])
 
 
 def test_table_masks_are_read_without_pil(monkeypatch):
-    """With PIL hidden, every table string still rasterizes, to the same
-    mask as `aic_tpu`'s (drawn before PIL was hidden)."""
-    want = {t: jfont.rasterize_text(t) for t in TABLE_STRINGS}
+    """With PIL hidden, every string of the former mask table composes, to
+    the same mask as `aic_tpu`'s (drawn before PIL was hidden)."""
+    want = {t: jfont.rasterize_text(t) for t in MASK_TABLE_STRINGS}
     monkeypatch.setitem(sys.modules, "PIL", None)
     tfont.rasterize_text.cache_clear()
-    for t in TABLE_STRINGS:
+    for t in MASK_TABLE_STRINGS:
         np.testing.assert_array_equal(tfont.rasterize_text(t), want[t], err_msg=t)
 
 
+@pytest.mark.parametrize("row", range(0, len(LATIN1), 16))
+def test_every_character_matches_aic_tpu(monkeypatch, row):
+    assert_port_draws_as_aic_tpu(monkeypatch, LATIN1[row : row + 16])
+
+
+@pytest.mark.parametrize("first", ASCII, ids=[f"U+{ord(c):04X}" for c in ASCII])
+def test_every_ascii_pair_matches_aic_tpu(monkeypatch, first):
+    assert_port_draws_as_aic_tpu(monkeypatch, [first + c for c in ASCII], resolutions=(16,))
+
+
+@pytest.mark.parametrize("chunk", range(RANDOM_STRINGS // RANDOM_CHUNK))
+def test_random_latin1_strings_match_aic_tpu(monkeypatch, chunk):
+    assert_port_draws_as_aic_tpu(monkeypatch, random_latin1(chunk), resolutions=(16,))
+
+
+@pytest.mark.parametrize("text", MULTILINE)
+def test_multiline_and_runtime_strings_match_aic_tpu(monkeypatch, text):
+    assert_port_draws_as_aic_tpu(monkeypatch, [text])
+
+
 def test_string_not_in_table_raises_without_pil(no_pil):
-    text = "not in the table æ"
-    assert text not in TABLE_STRINGS
-    with pytest.raises(tfont.TextNotInTable, match="not in the table"):
-        tfont.rasterize_text(text)
+    """A character outside the repertoire raises, naming the character;
+    no other glyph stands in for it."""
+    tfont.rasterize_text.cache_clear()
+    for text, bad in (("arrow → right", "→"), ("tab\there", "\t"), ("‘q’", "‘")):
+        with pytest.raises(tfont.TextNotInTable, match=f"U\\+{ord(bad):04X}"):
+            tfont.rasterize_text(text)
 
 
-def test_string_not_in_table_is_drawn_with_pil_where_it_imports():
-    text = "Drawn by PIL 42"
-    assert text not in TABLE_STRINGS
-    np.testing.assert_array_equal(tfont.rasterize_text(text), jfont.rasterize_text(text))
+def test_port_never_imports_pil_even_where_it_imports():
+    """A fresh interpreter, where PIL can be imported, imports every module
+    of the port but its glyph-table tool, draws text made at run time
+    (a notification's title, a message's lines, every Latin-1 glyph) and
+    builds a text block: PIL is never imported."""
+    import importlib.util
+
+    assert importlib.util.find_spec("PIL") is not None
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = """
+import pkgutil, sys, importlib
+import aic_tpu_torch
+for m in pkgutil.walk_packages(aic_tpu_torch.__path__, "aic_tpu_torch."):
+    if m.name != "aic_tpu_torch.tools.pil_glyph_table":
+        importlib.import_module(m.name)
+from aic_tpu_torch.text import font
+from aic_tpu_torch import block
+font.rasterize_text("Saved world-" + str(len(sys.argv)) + ".json")
+font.rasterize_text("Hello\\nworld ÿ")
+font.rasterize_text("".join(chr(c) for c in range(0x20, 0x7f)) + "".join(chr(c) for c in range(0xa0, 0x100)))
+block.evaluate(block.Block(block.TextPrimitive(text="OK 42", resolution=16, color=(1.0, 1.0, 1.0, 1.0))))
+assert "PIL" not in sys.modules, sorted(k for k in sys.modules if k.startswith("PIL"))
+print("no PIL")
+"""
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("no PIL"), out.stderr[-3000:]
 
 
 def test_atlas_decoded_without_pil_matches_aic_tpu(monkeypatch):

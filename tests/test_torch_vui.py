@@ -4,9 +4,9 @@ controllers, notifications) against `aic_tpu`'s, on the CPU.
 UI spaces are compared as arrays, without rendering them: bounds,
 contents, light and the palette entry by entry, evaluated the same
 (tests/test_torch_content.py's `assert_spaces_equal`), and the click
-regions with their actions equal. The port draws its text from the
-vendored mask table alone (`table_only`) but where a test shows a
-notification, whose title is free-form. Layout trees are seeded with
+regions with their actions equal. The port composes its text from the
+vendored glyph table (`table_only`), free-form notification titles
+included. Layout trees are seeded with
 numpy. Nothing here has a tolerance: everything compared is exact.
 """
 
@@ -27,7 +27,7 @@ from aic_tpu.vui import notification as jnote
 from aic_tpu.vui import page as jpage
 from aic_tpu_torch.apps.settings import Settings as TSettings
 from aic_tpu_torch.text import font as tfont
-from aic_tpu_torch.tools.pil_text_table import setting_values, ui_strings
+from aic_tpu_torch.tools.pil_glyph_table import setting_values, ui_strings
 from aic_tpu_torch.universe import cursor as tcursor
 from aic_tpu_torch.vui import controller as tcontroller
 from aic_tpu_torch.vui import notification as tnote
@@ -47,7 +47,7 @@ def assert_ui_equal(js, ts):
 
 # -- layout ------------------------------------------------------------------
 
-#: Label strings from the vendored table (the port draws no other).
+#: Label strings of the UI pages.
 WORDS = ["Resume", "About", "Settings", "Quit", "Back", "Paused", "Controls"]
 
 
@@ -250,12 +250,14 @@ def test_notification_hub_matches_aic_tpu():
 # -- text ------------------------------------------------------------------
 
 
-def test_fixed_ui_strings_are_in_the_table_as_aic_tpu_draws_them():
+def test_fixed_ui_strings_are_in_the_table_as_aic_tpu_draws_them(monkeypatch):
     """Every fixed string the HUD, the pages (each setting at each of its
-    values), the tooltips and the menu draw is in the vendored table, and
-    its mask is `aic_tpu`'s PIL drawing of it, bit for bit."""
+    values), the tooltips and the menu draw is made of the glyph table's
+    characters, and its mask, composed with PIL blocked, is `aic_tpu`'s
+    PIL drawing of it, bit for bit."""
+    import sys
+
     strings = ui_strings()
-    table = tfont._table()
     assert {"Paused", "Resume", "Settings", "About All is Cubes", "Back", tvui.hud.MENU_TITLE} <= strings
     for name in tpage.SETTING_CYCLES:
         for v in setting_values(name):
@@ -263,7 +265,10 @@ def test_fixed_ui_strings_are_in_the_table_as_aic_tpu_draws_them():
     for line in tpage.ABOUT_TEXT + tpage.CONTROLS_TEXT:
         if line:
             assert line in strings
-    missing = sorted(s for s in strings if s not in table)
+    missing = sorted(set("".join(strings)) - set(tfont.glyph_table().glyphs))
     assert not missing, missing
+    want = {s: jfont.rasterize_text(s) for s in strings}
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    tfont.rasterize_text.cache_clear()
     for s in sorted(strings):
-        np.testing.assert_array_equal(tfont.decode_mask(table[s]), jfont.rasterize_text(s), err_msg=repr(s))
+        np.testing.assert_array_equal(tfont.rasterize_text(s), want[s], err_msg=repr(s))
