@@ -174,6 +174,11 @@ def _islands(p: TemplateParameters) -> Space:
     return sp
 
 
+#: `aic_tpu`'s public name, empty there too: templates are dispatched by
+#: name in `build_template_space`.
+TEMPLATES = {}
+
+
 def build_template_space(name: str, params: TemplateParameters = TemplateParameters()) -> Space:
     """Build the world Space for a named template."""
     from .atrium import atrium

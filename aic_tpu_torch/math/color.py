@@ -10,6 +10,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+TRANSPARENT = np.zeros(4, np.float32)
+WHITE = np.array([1, 1, 1, 1], np.float32)
+BLACK = np.array([0, 0, 0, 1], np.float32)
+
 
 def nonneg(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=0.0)

@@ -33,6 +33,7 @@ VOXEL_BIT = 1 << 17
 SKIP_SHIFT = 18
 SKIP_MASK = 63
 RES_SHIFT = 24
+MAX_SKIP = 63
 
 
 

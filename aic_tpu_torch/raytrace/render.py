@@ -379,27 +379,65 @@ def encode_apng(frames, duration_ms: int) -> bytes:
     return b"".join(out)
 
 
+#: Channels of an 8-bit PNG by colour type: grey, RGB, grey + alpha, RGBA.
+PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
+def _unfilter(kinds: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """PNG's row filters undone (None, Sub, Up, Average, Paeth; `kinds`
+    u8[H], `rows` u8[H,W,C] as filtered). Each pixel depends on its left,
+    upper and upper-left neighbours, so the pixels are reconstructed one
+    anti-diagonal at a time, each step across every row at once: in the
+    skewed layout `skew[t + 2, r + 1]` = pixel (r, t - r), step t reads
+    the left and upper neighbours at t + 1 and the upper-left at t."""
+    h, w, c = rows.shape
+    if kinds.max(initial=0) > 4:
+        raise ValueError(f"PNG row filter {int(kinds.max())} is not one of 0-4")
+    r, x = np.mgrid[:h, :w]
+    # Filtered bytes off the image are 0, and so is every pixel before a
+    # row's first (x < 0) and the row above the first: they read as 0.
+    filt = np.zeros((h + w - 1, h, c), np.int16)
+    filt[r + x, r] = rows
+    skew = np.zeros((h + w + 1, h + 1, c), np.int16)
+    k = kinds[:, None]
+    sub, up, avg, paeth = ((k == i).astype(np.int16) for i in (1, 2, 3, 4))
+    for t in range(h + w - 1):
+        a, b, ul = skew[t + 1, 1:], skew[t + 1, :-1], skew[t, :-1]
+        pa, pb, pc = np.abs(b - ul), np.abs(a - ul), np.abs(a + b - 2 * ul)
+        nearest = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, ul))
+        pred = sub * a + up * b + avg * ((a + b) >> 1) + paeth * nearest
+        skew[t + 2, 1:] = (filt[t] + pred) & 0xFF
+    return skew[r + x + 2, r + 1].astype(np.uint8)
+
+
 def decode_png(png: bytes) -> np.ndarray:
-    """The image of a PNG that `encode_png` wrote (8-bit RGB or RGBA, no
-    interlace, every row filtered with type 0), as u8[H,W,C]."""
+    """The image of an 8-bit, non-interlaced PNG of colour type 0, 2, 4 or
+    6 (grey, RGB, grey + alpha, RGBA), every row filter allowed, as
+    u8[H,W,C] with C = 1, 3, 2 or 4; of an APNG, its default image (the
+    `IDAT` frame)."""
     if png[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG")
-    pos, idat = 8, []
+    pos, idat, header = 8, [], None
     while pos < len(png):
         n, kind = struct.unpack(">I4s", png[pos : pos + 8])
         body = png[pos + 8 : pos + 8 + n]
         if kind == b"IHDR":
-            w, h, depth, color_type, _, _, interlace = struct.unpack(">IIBBBBB", body)
-            if depth != 8 or color_type not in (2, 6) or interlace:
-                raise ValueError(f"unsupported PNG: depth {depth}, colour type {color_type}")
+            header = struct.unpack(">IIBBBBB", body)
+            _, _, depth, color_type, _, _, interlace = header
+            if depth != 8 or color_type not in PNG_CHANNELS or interlace:
+                raise ValueError(f"unsupported PNG: depth {depth}, colour type {color_type}, interlace {interlace}")
         elif kind == b"IDAT":
             idat.append(body)
         pos += 12 + n
-    c = 4 if color_type == 6 else 3
+    if header is None:
+        raise ValueError("PNG without IHDR")
+    w, h, _, color_type = header[:4]
+    c = PNG_CHANNELS[color_type]
     rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * c)
-    if rows[:, 0].any():
-        raise ValueError("PNG rows use a filter other than None")
-    return rows[:, 1:].reshape(h, w, c).copy()
+    image = rows[:, 1:].reshape(h, w, c)
+    if not rows[:, 0].any():  # every row unfiltered, as `encode_png` writes
+        return image.copy()
+    return _unfilter(rows[:, 0], image)
 
 
 def save_png(rendering: Rendering, path: str) -> None:

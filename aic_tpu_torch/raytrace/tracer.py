@@ -55,6 +55,12 @@ HIT_NONE = 0
 HIT_ATOM = 1
 HIT_VOXEL = 2
 
+#: The hit-buffer fields a phase shader consumes.
+HIT_KEYS = (
+    "hit_kind", "hit_idx", "hit_vflat", "hit_face",
+    "hit_t", "hit_next_t", "hit_cube",
+)
+
 #: Maximum volume (cubes) for which the per-(cube, face) interpolation-row
 #: table is built (432 B/cube); above it shading fetches texels directly.
 _INTERP_ROWS_MAX_VOLUME = 1 << 19

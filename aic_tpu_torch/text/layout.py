@@ -5,10 +5,9 @@ Port of `aic_tpu/text/layout.py`, copied but for where the glyphs come
 from. `aic_tpu` reads both atlases from a reference checkout and, where
 that is absent, draws PIL's default font into an atlas of the same
 shape. The port reads the system-16 atlas from its vendored copy
-(`sysfont.ATLAS_PATH`, the same file); the body-text atlas is not
-vendored, so its glyphs are `aic_tpu`'s PIL fall-back, drawn where PIL
-can be imported (`pil_atlas_masks`) and an error naming the font where
-it cannot.
+(`sysfont.ATLAS_PATH`, the same file); the body-text atlas is
+`aic_tpu`'s PIL fall-back, read from the vendored masks
+`BODY_ATLAS_PATH` (`pil_atlas_masks`), with no PIL.
 
 This is the full-fidelity text surface: monospaced fonts loaded from the
 reference's own glyph atlases (text/sysfont.py loaders), a `Positioning`
@@ -26,7 +25,10 @@ layout/voxel space has +y UP, so glyph rows are drawn at -py
 
 from __future__ import annotations
 
+import base64
 import functools
+import json
+import os
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -36,24 +38,23 @@ from ..math.grid import GridAab
 from .sysfont import ATLAS_PATH, GLYPHS_PER_ROW, atlas_masks, char_to_glyph_index
 
 
+#: PIL's default font drawn into the body-text font's cells, glyph by
+#: glyph, as `aic_tpu/text/sysfont.py:72-80` draws its fall-back for an
+#: absent atlas; written by `tools/pil_glyph_table.py`.
+BODY_ATLAS_PATH = os.path.join(os.path.dirname(__file__), "assets", "pil_body_text.json")
+
+
 @functools.lru_cache(maxsize=4)
 def pil_atlas_masks(char_w: int, char_h: int) -> np.ndarray:
-    """bool[224, char_h, char_w]: PIL's default font drawn glyph by glyph
-    (`aic_tpu/text/sysfont.py:72-80`, its fall-back for an absent atlas)."""
-    try:
-        from PIL import Image, ImageDraw, ImageFont
-    except ImportError as e:
-        raise RuntimeError(
-            f"a {char_w}x{char_h} font has no vendored atlas and PIL cannot be imported"
-        ) from e
-    font = ImageFont.load_default()
-    masks = np.zeros((224, char_h, char_w), bool)
-    for gi in range(224):
-        o = gi + 0x20 if gi < 0x60 else gi + 0x40
-        im = Image.new("L", (char_w, char_h), 0)
-        ImageDraw.Draw(im).text((0, 2), chr(o), fill=255, font=font)
-        masks[gi] = np.asarray(im) > 0
-    return masks
+    """bool[224, char_h, char_w]: PIL's default font glyph by glyph, as
+    `aic_tpu` draws it for an absent atlas, from `BODY_ATLAS_PATH`."""
+    with open(BODY_ATLAS_PATH) as f:
+        table = json.load(f)
+    if (table["char_w"], table["char_h"]) != (char_w, char_h):
+        raise RuntimeError(f"no vendored PIL atlas for a {char_w}x{char_h} font ({BODY_ATLAS_PATH} holds "
+                           f"{table['char_w']}x{table['char_h']})")
+    bits = np.unpackbits(np.frombuffer(base64.b64decode(table["masks"]), np.uint8))
+    return bits[: 224 * char_h * char_w].reshape(224, char_h, char_w).astype(bool)
 
 
 @dataclass(frozen=True)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Write the port's glyph table of PIL's default font (`text/assets/pil_glyphs.json`).
+"""Write the port's glyph tables of PIL's default font (`text/assets/pil_glyphs.json`, `pil_body_text.json`).
 
     python3 aic_tpu_torch/tools/pil_glyph_table.py [--check]
 
@@ -37,13 +37,19 @@ mismatch:
 - every recorded string, and seeded random strings of the repertoire and
   line breaks, the same way.
 
-`--check` writes nothing and fails if the table differs from what it
+It also writes the body-text font's atlas (`text/layout.py
+BODY_ATLAS_PATH`): each of its 224 glyphs drawn by PIL into a 6x14 cell
+at (0, 2), any coverage set, as `aic_tpu/text/sysfont.py:72-80` draws
+its fall-back atlas; `text/layout.py` reads it with no PIL.
+
+`--check` writes nothing and fails if a table differs from what it
 would write.
 """
 
 from __future__ import annotations
 
 import argparse
+import base64
 import json
 import os
 import sys
@@ -232,6 +238,35 @@ def build_table(repertoire: list) -> dict:
     }
 
 
+def draw_atlas_masks(char_w: int, char_h: int) -> np.ndarray:
+    """bool[224, char_h, char_w]: `aic_tpu/text/sysfont.py:72-80`'s PIL
+    fall-back atlas, glyph by glyph."""
+    from PIL import Image, ImageDraw, ImageFont
+
+    font = ImageFont.load_default()
+    masks = np.zeros((224, char_h, char_w), bool)
+    for gi in range(224):
+        o = gi + 0x20 if gi < 0x60 else gi + 0x40
+        im = Image.new("L", (char_w, char_h), 0)
+        ImageDraw.Draw(im).text((0, 2), chr(o), fill=255, font=font)
+        masks[gi] = np.asarray(im) > 0
+    return masks
+
+
+def build_body_atlas(char_w: int, char_h: int) -> dict:
+    """The body-text atlas as JSON: the masks' bits packed, base64."""
+    import PIL
+
+    masks = draw_atlas_masks(char_w, char_h)
+    return {
+        "font": "PIL ImageFont.load_default(), each glyph drawn at (0, 2) in its cell, any coverage set",
+        "pillow": PIL.__version__,
+        "char_w": char_w,
+        "char_h": char_h,
+        "masks": base64.b64encode(np.packbits(masks.reshape(-1)).tobytes()).decode(),
+    }
+
+
 def verify(table: dict, strings: list) -> int:
     """Composes every ordered pair of the table's repertoire and every
     string of `strings` and holds each to PIL's mask; exits on the first
@@ -264,6 +299,7 @@ def main() -> None:
     ap.add_argument("--check", action="store_true", help="compare, write nothing")
     args = ap.parse_args()
     from aic_tpu_torch.text import font as tfont
+    from aic_tpu_torch.text import layout as tlayout
 
     strings = sorted(recorded_strings())
     repertoire = sorted(set(LATIN1) | set("".join(strings)) - {"\n"})
@@ -271,15 +307,21 @@ def main() -> None:
     n = verify(table, strings + random_strings(repertoire, RANDOM_STRINGS))
     print(f"{len(repertoire)} glyphs, {len(table['kerning'])} kerning pairs; {n} strings composed "
           f"equal to PIL's masks ({table['font']}, Pillow {table['pillow']}, FreeType {table['freetype']})")
-    text = json.dumps(table, indent=1, ensure_ascii=False, sort_keys=True) + "\n"
+    body = tlayout.FONT_BODY_TEXT
+    atlas = build_body_atlas(body.char_w, body.char_h)
+    outputs = ((tfont.TABLE_PATH, table), (tlayout.BODY_ATLAS_PATH, atlas))
     if args.check:
-        with open(tfont.TABLE_PATH) as f:
-            same = json.load(f) == table
-        print(f"table {'matches' if same else 'DIFFERS'}")
+        same = True
+        for path, want in outputs:
+            with open(path) as f:
+                ok = json.load(f) == want
+            print(f"{os.path.basename(path)} {'matches' if ok else 'DIFFERS'}")
+            same &= ok
         sys.exit(0 if same else 1)
-    with open(tfont.TABLE_PATH, "w") as f:
-        f.write(text)
-    print(f"wrote {tfont.TABLE_PATH}")
+    for path, want in outputs:
+        with open(path, "w") as f:
+            f.write(json.dumps(want, indent=1, ensure_ascii=False, sort_keys=True) + "\n")
+        print(f"wrote {path}")
 
 
 if __name__ == "__main__":

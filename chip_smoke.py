@@ -172,13 +172,35 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    events) beside the card's `evaluate_light_dense` and the C++ relight;
    one round's launch against the plain walk and `relight_all` against
    the plain pass.
-13. the kernels line (JSON; K1's row from demo-city's frame, its phases'
+13. goldens — the port held to what `aic_tpu` made, the counters set to
+   0 before and read after, any miss a failure and a missing reference
+   file too: (a) tests/test_render_goldens.py's six self-goldens
+   (`golden_case` builds each scene as that file does), rendered by
+   `render` on the card and compared with tests/goldens/<case>.png at
+   that file's threshold (the tracer `pick_tracer` took, differing
+   fraction, max and mean delta, launches); (b) the atrium, plaza640
+   and demo-city (seed 0, size 96) snapshotted on the card with the
+   packed light `aic_tpu` traced them with in place of theirs, rendered
+   at 1920x1080 (K1, K3, K1) from the main paths' cameras and held to
+   `aic_tpu`'s frames (tests/goldens/aic_tpu_1080p/, written by
+   tests/torch_references.py) at TRACE_THRESHOLD, and the slice phase's
+   atrium frame of the card's own relight held to `aic_tpu`'s converged
+   atrium at END_TO_END_THRESHOLD; (c) the smooth-light functions on the
+   card (the phase shader's interp rows and the direct fetch) against
+   the f64 oracle (`testing.refmath`) on ORACLE_SAMPLES seeded surface
+   samples of the lit cornell-box 16, linear and smoothstep, within
+   ORACLE_BOUND; (d) the transaction laws (`testing.TransactionTester`
+   over tests/test_txn_laws.py's SpaceTransaction cases) on targets
+   whose contents live on the card, each commit scattered there by
+   `scatter_set_cubes`. The phase's seconds and launches.
+14. the kernels line (JSON; K1's row from demo-city's frame, its phases'
    launches summed; K2's listed mode as `relight_batch`, from the atrium
    step's batch that walked the most rows; launches summed over every
    main path, demo-city's, the render phase's, the session's, the
-   record phase's, the multi-GPU ranks' and the reference phase's
-   included), the `nvidia-smi` line, and the last line {"ok": true,
-   "device": {...}}. PIL must not have been imported by then.
+   record phase's, the multi-GPU ranks', the reference phase's and the
+   goldens phase's included), the `nvidia-smi` line, and the last line
+   {"ok": true, "device": {...}}. PIL must not have been imported by
+   then.
 
 Needs CUDA and the `aic_tpu_torch` package beside this file; imports no
 JAX and no PIL.
@@ -3378,6 +3400,332 @@ def multi_gpu_world(dev, smi, opts, universe) -> dict:
     return dict(counts=counts)
 
 
+# -- the goldens: the port's frames, light and transactions held to aic_tpu --
+
+#: The self-goldens of tests/test_render_goldens.py (`aic_tpu`'s renders,
+#: PNGs under tests/goldens/), built by `golden_case` as that file builds
+#: them, and their threshold there (differing fraction, delta).
+GOLDENS = os.path.join(HERE, "tests", "goldens")
+SELF_GOLDENS = ("cornell_flat", "cornell_lit_smoothstep", "transparency_volumetric", "recursive_fog",
+                "atrium_overview", "demo_city_overview")
+SELF_GOLDEN_THRESHOLD = (0.02, 6)
+#: `aic_tpu`'s 1920x1080 frames of the main paths' worlds and the light it
+#: traced them with (written by tests/torch_references.py), and the
+#: tracer `render` must take for each on the card. The trace reference
+#: (the card's frame of the world carrying `aic_tpu`'s light) is held at
+#: TRACE_THRESHOLD: `aic_tpu`'s own two tracers differ in 4 knife-edge
+#: pixels of 2.07 M on demo-city (ROADMAP C). The end-to-end reference
+#: (the atrium frame of the card's own relight) at END_TO_END_THRESHOLD,
+#: the self-goldens': the card's w = 1.3 f32 relight and `aic_tpu`'s CPU
+#: Jacobi agree to within one packed step (ROADMAP C).
+REFERENCES = os.path.join(GOLDENS, "aic_tpu_1080p")
+REFERENCE_TRACERS = {"atrium": "megakernel", "plaza640": "v1", "demo-city": "megakernel"}
+TRACE_THRESHOLD = (0.001, 2)
+END_TO_END_THRESHOLD = (0.02, 6)
+#: The light oracle: ORACLE_SAMPLES seeded (cube, point, face) samples at
+#: visible surfaces of the lit cornell-box 16, the port's smooth-light
+#: functions (the phase shader's interp-row path and the direct-fetch
+#: path) against `testing.refmath.interpolated_light_oracle` (f64), in
+#: linear and smoothstep modes. ORACLE_BOUND (max abs difference of the
+#: rgb) is the larger of 1e-5 and `aic_tpu`'s own `_interpolated_light`
+#: against the oracle on the same samples, which
+#: tests/test_torch_goldens.py::test_oracle_bound_covers_aic_tpu measures
+#: on the CPU (8.7e-7 linear, 1.2e-6 smoothstep).
+ORACLE_SAMPLES = 4096
+ORACLE_SEED = 15
+ORACLE_BOUND = 1e-5
+ORACLE_MODES = (("linear", "linear"), ("smoothstep", "smooth"))
+
+
+def golden_case(name, dev):
+    """(state, camera) of one of tests/test_render_goldens.py's cases,
+    built with the port as that file builds it with `aic_tpu`; the state on
+    `dev`. The lit cornell-box's relight runs `evaluate_light`, whose w =
+    1.3 loop falls back to plain Jacobi there (recorded, not an error)."""
+    from aic_tpu_torch import block
+    from aic_tpu_torch.content import atrium, cornell_box, demo_city, menger_sponge
+    from aic_tpu_torch.light import dense
+    from aic_tpu_torch.light.update import evaluate_light
+    from aic_tpu_torch.math.grid import GridAab
+    from aic_tpu_torch.raytrace import Camera, GraphicsOptions, Viewport
+    from aic_tpu_torch.space import Sky, Space, SpacePhysics
+
+    size, cornell_eye = 48, np.array([0.5, 0.5, 1.6]) * 16
+    if name == "cornell_flat":
+        st = cornell_box(16).snapshot(device=dev)
+        opts = GraphicsOptions(lighting_display="none", fog="none", transparency="surface")
+        eye, target = cornell_eye, (8, 8, 8)
+    elif name == "cornell_lit_smoothstep":
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", dense.OverrelaxFellBack)
+            st, _ = evaluate_light(cornell_box(16).snapshot(device=dev), batch_size=512, max_rounds=400)
+        opts = GraphicsOptions(lighting_display="smoothstep", fog="none", transparency="surface")
+        eye, target = cornell_eye, (8, 8, 8)
+    elif name == "transparency_volumetric":
+        sp = Space(GridAab.cube(6), physics=SpacePhysics(sky=Sky.uniform((0.8, 0.85, 1.0))))
+        sp.fill(GridAab.from_lower_size((0, 0, 0), (6, 1, 6)), block.from_color((0.4, 0.4, 0.4, 1)))
+        sp.set((2, 1, 2), block.Block(block.Atom(color=(1.0, 0.2, 0.2, 0.4))))
+        sp.set((3, 1, 3), block.from_color((0.2, 0.2, 1.0, 1.0)))
+        sp.fast_evaluate_light()
+        st = sp.snapshot(device=dev)
+        opts = GraphicsOptions(lighting_display="flat", fog="none", transparency="volumetric")
+        eye, target = (3.0, 4.0, 8.0), (3.0, 1.0, 3.0)
+    elif name == "recursive_fog":
+        st = menger_sponge(world_levels=2, block_levels=2).snapshot(device=dev)
+        opts = GraphicsOptions(lighting_display="none", fog="physical", transparency="surface")
+        eye, target = (14.0, 12.0, 20.0), (4.5, 4.5, 4.5)
+    elif name == "atrium_overview":
+        st = atrium(width=30, depth=20, floors=2).snapshot(device=dev)
+        opts = GraphicsOptions(lighting_display="flat", fog="none")
+        eye, target, size = np.array([15.0, 4.0, 6.0]), (15.0, 5.0, 10.0), 64
+    elif name == "demo_city_overview":
+        st = demo_city(seed=1, size=48).snapshot(device=dev)
+        opts = GraphicsOptions(lighting_display="flat", fog="none")
+        eye, target, size = np.array([0.0, 14.0, 30.0]), (0.0, 2.0, 0.0), 64
+    else:
+        raise KeyError(name)
+    cam = Camera(opts, Viewport(size, size))
+    cam.look_at(eye, target)
+    return st, cam
+
+
+def surface_samples(state, n, seed):
+    """`n` seeded (cube i64[n,3], point f32[n,3], face i64[n]) at visible
+    surfaces, index space: a face of a visible cube whose neighbour across
+    it lies inside the bounds and is not visible. Half the points lie on
+    the face (an atom's surface), half inside the cube at a random depth
+    along the normal (where a voxel block's surface lies); both at a
+    random place across the face."""
+    from aic_tpu_torch.math import faces as F
+
+    vis = state.tables.visible.cpu().numpy()[state.contents.cpu().numpy()]
+    pad = np.pad(vis, 1, constant_values=True)
+    X, Y, Z = vis.shape
+    cands = []
+    for f in range(6):
+        nx, ny, nz = F.FACE_NORMALS[f]
+        exposed = vis & ~pad[1 + nx : 1 + nx + X, 1 + ny : 1 + ny + Y, 1 + nz : 1 + nz + Z]
+        cubes = np.argwhere(exposed)
+        cands.append(np.concatenate([cubes, np.full((len(cubes), 1), f)], axis=1))
+    cands = np.concatenate(cands)
+    rng = np.random.default_rng(seed)
+    pick = cands[rng.integers(0, len(cands), n)]
+    cube, face = pick[:, :3], pick[:, 3]
+    frame = np.asarray(F.FACE_TANGENT_FRAMES, np.float64)[face]
+    depth = np.where(np.arange(n) % 2 == 0, 1.0, rng.random(n))
+    r = rng.random((n, 2))
+    point = (cube + 0.5 + frame[:, 2] * (depth[:, None] - 0.5) + frame[:, 0] * (r[:, :1] - 0.5)
+             + frame[:, 1] * (r[:, 1:] - 0.5))
+    return cube, point.astype(np.float32), face
+
+
+def oracle_light(state, cube, point, face, mode):
+    """f64[n,3]: `interpolated_light_oracle` over the samples (a host copy
+    of the state read once)."""
+    from aic_tpu_torch.testing.refmath import interpolated_light_oracle
+
+    host = state.to("cpu")
+    return np.stack([interpolated_light_oracle(host, c, p, int(f), mode) for c, p, f in zip(cube, point, face)])
+
+
+def port_smooth_light(state, cube, point, face, mode):
+    """The port's smooth light on the state's device, f64[n,3] each: the
+    phase shader's path (`_interpolated_light_rows` over
+    `_build_interp_rows`) and the direct-fetch path (`_interpolated_light`)."""
+    import torch
+    from aic_tpu_torch.raytrace import tracer
+
+    dev = state.device
+    c = torch.as_tensor(cube, dtype=torch.int32, device=dev)
+    p = torch.as_tensor(point, device=dev)
+    f = torch.as_tensor(face, dtype=torch.int32, device=dev)
+    rows = tracer._interpolated_light_rows(state, tracer._build_interp_rows(state), c, p, f, mode)
+    direct = tracer._interpolated_light(state, c, p, f, mode)
+    return rows.double().cpu().numpy(), direct.double().cpu().numpy()
+
+
+def txn_law_cases(make_target, commit):
+    """tests/test_txn_laws.py's SpaceTransaction cases (its five example
+    transactions, with the out-of-bounds non-conserved write of
+    `test_commit_never_errors_when_check_passed` as a sixth, and its two
+    targets) as a port `TransactionTester`. `make_target(with_red)` makes a
+    target with `.space`; `commit(txn, target)` commits a transaction.
+    Each predicate reads the target's host space and, where the target has
+    a device `.state`, its contents at the cube."""
+    from aic_tpu_torch import block
+    from aic_tpu_torch.testing.txn_tester import TransactionTester
+    from aic_tpu_torch.universe.transaction import SpaceTransaction
+
+    red = block.from_color((0.9, 0.1, 0.1, 1.0), display_name="red")
+    green = block.from_color((0.1, 0.9, 0.1, 1.0), display_name="green")
+    blue = block.from_color((0.1, 0.1, 0.9, 1.0), display_name="blue")
+
+    def expects(cube, blk):
+        def pred(before, after):
+            sp = after.space
+            assert sp.block_at(cube) == blk, f"expected {blk.attributes.display_name} at {cube}"
+            if getattr(after, "state", None) is not None:
+                dev_idx = int(after.state.contents[cube].item())
+                assert dev_idx == int(sp.contents[sp._rel(cube)]), f"device contents at {cube}: {dev_idx}"
+
+        return pred
+
+    return (
+        TransactionTester(check=lambda txn, t: txn.check(t.space), commit=commit)
+        .transaction(SpaceTransaction.set_cube((1, 1, 1), new=green), expects((1, 1, 1), green))
+        .transaction(SpaceTransaction.set_cube((2, 2, 2), new=blue, conserved=False), expects((2, 2, 2), blue))
+        .transaction(SpaceTransaction.set_cube((0, 0, 0), old=red, new=green), expects((0, 0, 0), green))
+        .transaction(SpaceTransaction.set_cube((1, 1, 1), new=blue), expects((1, 1, 1), blue))
+        .transaction(SpaceTransaction.emitting_fluff((3, 3, 3), "happened"), lambda before, after: None)
+        .transaction(SpaceTransaction.set_cube((99, 0, 0), new=green, conserved=False),
+                     lambda before, after: None)
+        .target(lambda: make_target(True, (red, green, blue)))
+        .target(lambda: make_target(False, (red, green, blue)))
+    )
+
+
+class DeviceTarget:
+    """A transaction target whose contents live on the device: a 4³ host
+    Space (red at the origin where `with_red`) with the example blocks
+    already in its palette, so no commit grows it, and its snapshot on
+    `dev`. `commit` commits the host half and scatters the device half
+    (`scatter_set_cubes`, through `SpaceTransaction.commit`)."""
+
+    def __init__(self, dev, with_red, blocks):
+        from aic_tpu_torch.math.grid import GridAab
+        from aic_tpu_torch.space import Space
+
+        self.space = Space(GridAab.from_lower_size((0, 0, 0), (4, 4, 4)))
+        for b in blocks:
+            self.space.ensure_block(b)
+        if with_red:
+            self.space.set((0, 0, 0), blocks[0])
+        self.state = self.space.snapshot(device=dev)
+
+    def commit(self, txn):
+        state = txn.commit(self.space, self.state)
+        if state is None:
+            raise RuntimeError("the commit grew the palette: the device state would need a resnapshot")
+        self.state = state
+
+
+def goldens_world(dev, smi, reset_counts, read_counts, spaces, atrium_frame) -> dict:
+    """The port held to images, light and transactions `aic_tpu` made,
+    the launch counters set to 0 before and read after: (a) the six
+    self-goldens rendered on the card; (b) the main paths' worlds
+    (`spaces` holds the atrium and plaza640; demo-city is built here as
+    `city_world` builds it) carrying `aic_tpu`'s stored light, traced and
+    finished by `render` (K1, K3) and held to `aic_tpu`'s frames, and
+    `atrium_frame`, the slice phase's frame of the card's own relight,
+    held to `aic_tpu`'s converged atrium; (c) the light oracle on the lit
+    cornell-box 16 of (a); (d) the transaction laws on targets whose
+    contents live on the card. A missing reference file fails."""
+    import dataclasses
+    import importlib
+
+    import torch
+    from aic_tpu_torch.content import TemplateParameters, build_template_space
+    from aic_tpu_torch.main import default_camera
+    from aic_tpu_torch.raytrace import GraphicsOptions, render
+    from aic_tpu_torch.space import state as state_mod
+    from aic_tpu_torch.testing import Threshold, compare_to_golden
+
+    render_mod = importlib.import_module("aic_tpu_torch.raytrace.render")
+
+    def golden_path(path):
+        if not os.path.exists(path):
+            fail(f"goldens: the reference {os.path.relpath(path, HERE)} is missing")
+        return path
+
+    def compare(image, path, threshold, label):
+        ok, msg = compare_to_golden(image, golden_path(path), Threshold(*threshold))
+        if msg.startswith("recorded"):
+            fail(f"goldens {label}: compare_to_golden recorded instead of comparing ({msg})")
+        if not ok:
+            fail(f"goldens {label}: {msg} at Threshold{threshold}")
+        return msg
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    lit_cornell = None
+    for name in SELF_GOLDENS:
+        before = read_counts()
+        state, cam = golden_case(name, dev)
+        tracer = render_mod.pick_tracer(state)
+        img = render(state, cam).data
+        msg = compare(img, os.path.join(GOLDENS, f"{name}.png"), SELF_GOLDEN_THRESHOLD, name)
+        after = read_counts()
+        phase("goldens", f"(a) {name} {img.shape[1]}x{img.shape[0]}: {tracer}; {msg} "
+              f"(Threshold{SELF_GOLDEN_THRESHOLD}); launches {_delta(before, after)}")
+        if name == "cornell_lit_smoothstep":
+            lit_cornell = state
+
+    with open(golden_path(os.path.join(REFERENCES, "manifest.json"))) as f:
+        manifest = json.load(f)
+    opts = GraphicsOptions(lighting_display="smoothstep", fog="none")
+    for world, tracer_want in REFERENCE_TRACERS.items():
+        entry = manifest[world]
+        space = spaces.get(world) or build_template_space("demo-city", TemplateParameters(seed=0, size=96))
+        cam = default_camera(space, 1920, 1080, opts)
+        if not np.array_equal(cam.eye_to_world, np.asarray(entry["eye_to_world"])) or \
+                entry["options"] != dict(lighting_display="smoothstep", fog="none"):
+            fail(f"goldens {world}: the reference's camera or options are not the main path's")
+        light = np.load(golden_path(os.path.join(REFERENCES, f"{world}_light.npz")))["light"]
+        snap = space.snapshot(device=dev)
+        if light.shape != tuple(snap.light.shape):
+            fail(f"goldens {world}: stored light {light.shape}, the world's {tuple(snap.light.shape)}")
+        state = dataclasses.replace(snap, light=torch.from_numpy(light).to(dev))
+        del snap
+        before = read_counts()
+        traces = dict(render_mod.TRACES)
+        t0 = time.perf_counter()
+        frame = render(state, cam)
+        frame_ms = (time.perf_counter() - t0) * 1e3
+        after = read_counts()
+        took = [k for k in traces if render_mod.TRACES[k] > traces[k]]
+        if took != [tracer_want]:
+            fail(f"goldens {world}: render took {took}, not {tracer_want}")
+        if frame.flaws:
+            fail(f"goldens {world}: render flaws {frame.flaws}")
+        msg = compare(frame.data, os.path.join(REFERENCES, f"{world}.png"), TRACE_THRESHOLD, f"{world} trace")
+        phase("goldens", f"(b) {world} 1920x1080 with aic_tpu's light ({entry['light']}): {tracer_want}, "
+              f"{frame_ms:.1f} ms; {msg} (Threshold{TRACE_THRESHOLD}); launches {_delta(before, after)}")
+        del state, frame
+    msg = compare(atrium_frame, os.path.join(REFERENCES, "atrium.png"), END_TO_END_THRESHOLD, "atrium end to end")
+    phase("goldens", f"(b) atrium end to end (the slice phase's frame of the card's own relight) against "
+          f"aic_tpu's converged atrium: {msg} (Threshold{END_TO_END_THRESHOLD})")
+
+    t0 = time.perf_counter()
+    cube, point, face = surface_samples(lit_cornell, ORACLE_SAMPLES, ORACLE_SEED)
+    errs = {}
+    for mode, oracle_mode in ORACLE_MODES:
+        want = oracle_light(lit_cornell, cube, point, face, oracle_mode)
+        rows, direct = port_smooth_light(lit_cornell, cube, point, face, mode)
+        errs[mode] = (float(np.abs(rows - want).max()), float(np.abs(direct - want).max()))
+        if max(errs[mode]) > ORACLE_BOUND:
+            fail(f"goldens light oracle, {mode}: max abs difference (rows, direct) {errs[mode]} over {ORACLE_BOUND}")
+    phase("goldens", f"(c) light oracle, lit cornell-box 16, {ORACLE_SAMPLES} samples at visible surfaces, on "
+          f"{dev}: max abs difference to the f64 oracle (interp rows, direct) {errs}, bound {ORACLE_BOUND}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    with timed_calls(state_mod, "scatter_set_cubes") as scatters:
+        txn_law_cases(lambda with_red, blocks: DeviceTarget(dev, with_red, blocks),
+                      lambda txn, target: target.commit(txn)).test()
+    if not scatters:
+        fail("goldens transaction laws: no commit went through scatter_set_cubes")
+    phase("goldens", f"(d) transaction laws on targets on {dev}: check before commit and merge completeness held "
+          f"over 6 transactions, their merges and 2 targets; {len(scatters)} commits scattered on the card; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    counts = read_counts()
+    for name in ("trace_megakernel", "trace_v1"):
+        if counts[name] <= 0:
+            fail(f"goldens: {name} was not launched: {counts}")
+    phase("goldens", f"({smi}) {time.perf_counter() - t_phase:.1f} s; launches {counts}")
+    return dict(counts=counts)
+
+
 def main() -> None:
     sys.path.insert(0, HERE)
     import torch
@@ -3520,6 +3868,7 @@ def main() -> None:
             fail(f"atrium main path: {name} was not launched: {atrium_counts}")
     coverage = check_frame(frame, state, "atrium")
     frame, frame_ms = warm_frames(state, cam, 3)
+    atrium_frame = frame.data
     save_png(frame, os.path.join(HERE, "aic_tpu_torch", "_build", "atrium_1080p.png"))
     phase("slice", f"atrium 1920x1080 smoothstep: {frame_ms:.1f} ms/frame warm "
           f"({1920 * 1080 / frame_ms / 1e3:.2f} Mrays/s), alpha coverage {coverage:.3f}")
@@ -3612,15 +3961,19 @@ def main() -> None:
     # 12. the reference-procedure relight and one whole-volume round.
     reference = reference_world(dev, smi, reset_counts, read_counts)
 
+    # 13. the goldens: frames, light and transactions held to aic_tpu's.
+    goldens = goldens_world(dev, smi, reset_counts, read_counts,
+                            {"atrium": atrium_space, "plaza640": plaza_space}, atrium_frame)
+
     if "PIL" in sys.modules:
         fail("PIL was imported during the run: the port draws text from its glyph table alone")
     counts = {k: atrium_counts[k] + plaza_counts[k] + city["counts"][k] + rendered["counts"][k]
               + session["counts"][k] + recorded["counts"][k] + multi["counts"].get(k, 0)
-              + reference["counts"][k] for k in atrium_counts}
+              + reference["counts"][k] + goldens["counts"][k] for k in atrium_counts}
     counts["relight_batch"] = (sum(st["counts"]["relight_batch"] for st in steps.values())
                                + city["counts"]["relight_batch"] + session["counts"]["relight_batch"]
                                + recorded["counts"]["relight_batch"] + multi["counts"].get("relight_batch", 0)
-                               + reference["counts"]["relight_batch"])
+                               + reference["counts"]["relight_batch"] + goldens["counts"]["relight_batch"])
     rows = [
         ("trace_megakernel", "aic_tpu_torch/csrc/trace.cu", "aic_tpu/raytrace/pallas_trace.py:1140", city["k1"]),
         ("relight_pass", "aic_tpu_torch/csrc/relight.cu", "aic_tpu/light/pallas_relight.py:338",

@@ -840,3 +840,29 @@ def test_relight_all_on_the_card_equals_plain(cuda_device):
     again, _ = dense._apply_pass(st.to("cpu"), got.light.cpu())
     np.testing.assert_array_equal(got.light_dirty.cpu().numpy(), again.light_dirty.numpy())
     assert int(stats["updated"]) == st.contents.numel()
+
+
+def test_light_oracle_on_the_card(cuda_device):
+    """`chip_smoke`'s light oracle at small size: the smooth-light
+    functions on the card (the phase shader's interp rows and the direct
+    fetch) against the f64 oracle on seeded surface samples of a lit
+    cornell-box 8, linear and smoothstep, within `chip_smoke.ORACLE_BOUND`."""
+    st, _ = dense.evaluate_light_dense(cornell_box(8).snapshot(device=cuda_device))
+    cube, point, face = chip_smoke.surface_samples(st, 512, chip_smoke.ORACLE_SEED)
+    for mode, oracle_mode in chip_smoke.ORACLE_MODES:
+        want = chip_smoke.oracle_light(st, cube, point, face, oracle_mode)
+        rows, direct = chip_smoke.port_smooth_light(st, cube, point, face, mode)
+        assert np.abs(rows - want).max() <= chip_smoke.ORACLE_BOUND
+        assert np.abs(direct - want).max() <= chip_smoke.ORACLE_BOUND
+
+
+def test_transaction_laws_on_the_card(cuda_device):
+    """tests/test_txn_laws.py's SpaceTransaction cases through the port's
+    `TransactionTester` on targets whose contents live on the card, each
+    commit scattered there by `scatter_set_cubes`."""
+    from aic_tpu_torch.space import state as state_mod
+
+    with chip_smoke.timed_calls(state_mod, "scatter_set_cubes") as scatters:
+        chip_smoke.txn_law_cases(lambda with_red, blocks: chip_smoke.DeviceTarget(cuda_device, with_red, blocks),
+                                 lambda txn, target: target.commit(txn)).test()
+    assert scatters

@@ -10,6 +10,7 @@ unless asked for the CPU, so every call here asks for it.
 """
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -291,14 +292,22 @@ def test_device_defaults_are_the_card():
 
 
 def test_import_leaves_out_jax():
-    """The port and `chip_smoke.py` import no JAX, not even through
-    `aic_tpu`."""
+    """The port (every module, `aic_tpu_torch.testing` included) and
+    `chip_smoke.py` import no JAX, not even through `aic_tpu` (the card's
+    machine has none), and no PIL, at import or inside a function: the
+    port reads and writes its images itself. `tools/pil_glyph_table.py`,
+    which writes the glyph table from PIL's font, is the one module that
+    imports PIL, and is left out."""
+    pil = re.compile(r"^\s*(from|import)\s+PIL\b", re.M)
+    users = [str(f.relative_to(ROOT)) for f in sorted((ROOT / "aic_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             if pil.search(f.read_text())]
+    assert users == ["aic_tpu_torch/tools/pil_glyph_table.py"], users
     code = (
-        "import sys; import aic_tpu_torch.main, aic_tpu_torch.light, "
-        "aic_tpu_torch.raytrace, aic_tpu_torch.content, aic_tpu_torch.kernels, "
-        "aic_tpu_torch.raytrace.trace_kernel_v1, chip_smoke; "
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'aic_tpu.'))"
-        " or m == 'aic_tpu']; print(bad); sys.exit(1 if bad else 0)"
+        "import importlib, pkgutil, sys; import aic_tpu_torch, chip_smoke; "
+        "[importlib.import_module(m.name) for m in pkgutil.walk_packages(aic_tpu_torch.__path__, "
+        "'aic_tpu_torch.') if m.name != 'aic_tpu_torch.tools.pil_glyph_table']; "
+        "bad = [m for m in sys.modules if m in ('jax', 'aic_tpu', 'PIL')"
+        " or m.startswith(('jax.', 'aic_tpu.', 'PIL.'))]; print(bad); sys.exit(1 if bad else 0)"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run(

@@ -24,7 +24,9 @@
   draws PIL's default font instead; the port reads its vendored copy of
   that atlas, so `aic_tpu` is given the same file here (its `FONTS` entry
   pointed at `aic_tpu/text/assets/`, as with the checkout present). The
-  body-text atlas is vendored by neither: both packages draw PIL's glyphs.
+  body-text atlas: `aic_tpu` draws PIL's glyphs, the port reads them from
+  its vendored masks (`layout.BODY_ATLAS_PATH`, written by
+  `tools/pil_glyph_table.py`); equal glyph for glyph, with PIL hidden.
 """
 
 import os
@@ -214,6 +216,8 @@ font.rasterize_text("Saved world-" + str(len(sys.argv)) + ".json")
 font.rasterize_text("Hello\\nworld ÿ")
 font.rasterize_text("".join(chr(c) for c in range(0x20, 0x7f)) + "".join(chr(c) for c in range(0xa0, 0x100)))
 block.evaluate(block.Block(block.TextPrimitive(text="OK 42", resolution=16, color=(1.0, 1.0, 1.0, 1.0))))
+from aic_tpu_torch.text import layout
+layout.FONT_BODY_TEXT.masks()
 assert "PIL" not in sys.modules, sorted(k for k in sys.modules if k.startswith("PIL"))
 print("no PIL")
 """
@@ -235,6 +239,17 @@ def test_atlas_decoded_without_pil_matches_aic_tpu(monkeypatch):
     np.testing.assert_array_equal(tsysfont.read_png(tsysfont.ATLAS_PATH), want_rgba)
     got = tsysfont.atlas_masks(tsysfont.ATLAS_PATH, 7, 16)
     assert got.shape == want.shape == (192, 16, 7)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_body_text_atlas_read_without_pil_matches_aic_tpu(monkeypatch):
+    """The body-text font's vendored atlas, read with PIL hidden, against
+    `aic_tpu`'s PIL drawing of it: every one of its 224 glyphs equal."""
+    want = jlayout.FONT_BODY_TEXT.masks()
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    tlayout.pil_atlas_masks.cache_clear()
+    got = tlayout.FONT_BODY_TEXT.masks()
+    assert got.shape == want.shape == (224, 14, 6)
     np.testing.assert_array_equal(got, want)
 
 
