@@ -36,6 +36,7 @@ import weakref
 import numpy as np
 import torch
 
+from .. import profiling
 from ..math import faces, lightpack
 from ..space.state import SpaceState, lookup_contents
 from .chart import STEP_END, STEP_PAD, build_chart
@@ -109,12 +110,14 @@ def _origins(state: SpaceState, cubes: torch.Tensor, cosines: torch.Tensor) -> O
     mean_alpha = t.face_colors[idx0, 6, 3].clamp(0.0, 1.0)
 
     # directions_to_seek_light (updater.rs:663).
-    normals = torch.as_tensor(faces.FACE_NORMALS[:6], dtype=cubes.dtype, device=cubes.device)
+    with profiling.wait("light.origin_normals"):
+        normals = torch.as_tensor(faces.FACE_NORMALS[:6], dtype=cubes.dtype, device=cubes.device)
     nidx, _ = lookup_contents(state, cubes[:, None, :] + normals[None])
     nidx = nidx.long()
     n_visible = t.visible[nidx]
     n_emissive = (t.light_emission[nidx] != 0).any(-1)
-    opp = torch.as_tensor(faces.OPPOSITE[:6], dtype=torch.long, device=cubes.device)
+    with profiling.wait("light.origin_opposite"):
+        opp = torch.as_tensor(faces.OPPOSITE[:6], dtype=torch.long, device=cubes.device)
     one = torch.ones_like(n_emissive, dtype=torch.float32)
     dir_weights = torch.where(
         origin_visible[:, None], one, torch.where(n_visible[:, opp] | n_emissive, one, 0.0 * one)
@@ -235,7 +238,9 @@ def relight_batch_cuda(state: SpaceState, cubes: torch.Tensor, valid: torch.Tens
     """`relight_batch` on the card: `relight_listed_batch`, except that a
     batch whose every row is padding (an empty queue's) gives zeros and
     launches nothing; finding that out is the round's one read-back."""
-    if not bool(valid.any()):
+    with profiling.wait("light.any_valid"):
+        any_valid = bool(valid.any())
+    if not any_valid:
         return torch.zeros((cubes.shape[0], 4), dtype=torch.uint8, device=cubes.device)
     return relight_listed_batch(state, cubes, valid)
 
@@ -273,26 +278,31 @@ def _topk_first(values: torch.Tensor, k: int) -> torch.Tensor:
     return torch.topk(values.to(torch.int64) * L + inv, k, dim=-1).indices
 
 
+def batch_shape(n: int, batch_size: int) -> tuple[int, int, int]:
+    """The shape of a round's batch over a volume of n cubes: (rows k,
+    128-cube rows picked kr, cubes picked from each m)."""
+    k = min(batch_size, n)
+    kr = min(k, -(-n // 128))
+    m = -(-k // kr) if kr * 4 < k else 4  # tiny volumes: deepen per-row picks
+    m = min(m, 128)
+    return min(k, kr * m), kr, m
+
+
 def select_batch(light_dirty: torch.Tensor, batch_size: int):
     """A round's batch (update.py:286-324): the two-stage selection over
     128-cube rows. Returns (positions i64[k,3], valid bool[k], flat i64[k])."""
     X, Y, Z = light_dirty.shape
     flat_dirty = light_dirty.reshape(-1)
     n = flat_dirty.shape[0]
-    k = min(batch_size, n)
+    k, kr, m = batch_shape(n, batch_size)
     if n % 128:
         flat_dirty = torch.cat([flat_dirty, flat_dirty.new_zeros(128 - n % 128)])
     rows2 = flat_dirty.reshape(-1, 128).to(torch.int64)
-    n_rows = rows2.shape[0]
-    kr = min(k, n_rows)
     rsel = _topk_first(rows2.amax(dim=1), kr)
     cand = rows2[rsel]  # [kr,128]
-    m = -(-k // kr) if kr * 4 < k else 4  # tiny volumes: deepen per-row picks
-    m = min(m, 128)
     coff = _topk_first(cand, m)  # [kr,m]
     cprio = cand.gather(1, coff)
     cpos = rsel[:, None] * 128 + coff
-    k = min(k, kr * m)
     ci = _topk_first(cprio.reshape(-1), k)
     prio = cprio.reshape(-1)[ci]
     flat_pos = torch.clamp(cpos.reshape(-1)[ci], max=n - 1)
@@ -306,59 +316,79 @@ def light_update_round(state: SpaceState, batch_size: int = 256):
     cubes whose light changed by more than one step. Returns (state,
     stats), the stats as tensors on the state's device (updated,
     max_diff, queue_remaining). On the card the one read-back is whether
-    the batch has a valid row (`relight_batch_cuda`).
+    the batch has a valid row (`relight_batch_cuda`); the host also waits
+    for each blocking copy of a host constant (the `wait` spans).
 
     Writes go through a copy of the volume with one spare element past
     its end, which takes the rows that must write nothing (padding rows,
     neighbours outside the bounds), so the scatters need no host-side
     filtering and no row's write can land on another's cube."""
-    shape = state.contents.shape
-    n = state.contents.numel()
-    pos, valid, flat = select_batch(state.light_dirty, batch_size)
-    new_light = relight_batch(state, pos, valid)
-    old_light = state.light.reshape(-1, 4)[flat]
-    diff = lightpack.difference_priority(old_light, new_light)
+    with profiling.span("light.round"):
+        shape = state.contents.shape
+        n = state.contents.numel()
+        with profiling.span("light.select"):
+            pos, valid, flat = select_batch(state.light_dirty, batch_size)
+        with profiling.span("light.relight"):
+            new_light = relight_batch(state, pos, valid)
+        with profiling.span("light.scatter"):
+            old_light = state.light.reshape(-1, 4)[flat]
+            diff = lightpack.difference_priority(old_light, new_light)
 
-    target = torch.where(valid, flat, n)
-    light = torch.cat([state.light.reshape(-1, 4), state.light.new_zeros((1, 4))])
-    light[target] = new_light
-    dirty = torch.cat([state.light_dirty.reshape(-1), state.light_dirty.new_zeros(1)]).to(torch.int32)
-    dirty[target] = 0
-    normals = torch.as_tensor(faces.FACE_NORMALS[:6], dtype=torch.int64, device=pos.device)
-    npos = pos[:, None, :] + normals[None]
-    size = torch.as_tensor(shape, dtype=torch.int64, device=pos.device)
-    inside = ((npos >= 0) & (npos < size)).all(-1)
-    nflat = torch.where(inside, (npos[..., 0] * shape[1] + npos[..., 1]) * shape[2] + npos[..., 2], n)
-    nprio = torch.where(valid & (diff > 1), torch.clamp(diff, max=255), 0)
-    dirty.scatter_reduce_(0, nflat.reshape(-1), nprio[:, None].expand(-1, 6).reshape(-1), "amax")
-    dirty = dirty[:n].to(torch.uint8).reshape(shape)
+            target = torch.where(valid, flat, n)
+            light = torch.cat([state.light.reshape(-1, 4), state.light.new_zeros((1, 4))])
+            light[target] = new_light
+            dirty = torch.cat([state.light_dirty.reshape(-1), state.light_dirty.new_zeros(1)]).to(torch.int32)
+            with profiling.wait("light.clear_marks"):  # the 0 goes to the card as a blocking copy
+                dirty[target] = 0
+            with profiling.wait("light.neighbour_normals"):
+                normals = torch.as_tensor(faces.FACE_NORMALS[:6], dtype=torch.int64, device=pos.device)
+            npos = pos[:, None, :] + normals[None]
+            with profiling.wait("light.volume_size"):
+                size = torch.as_tensor(shape, dtype=torch.int64, device=pos.device)
+            inside = ((npos >= 0) & (npos < size)).all(-1)
+            nflat = torch.where(inside, (npos[..., 0] * shape[1] + npos[..., 1]) * shape[2] + npos[..., 2], n)
+            nprio = torch.where(valid & (diff > 1), torch.clamp(diff, max=255), 0)
+            dirty.scatter_reduce_(0, nflat.reshape(-1), nprio[:, None].expand(-1, 6).reshape(-1), "amax")
+            dirty = dirty[:n].to(torch.uint8).reshape(shape)
 
-    new_state = dataclasses.replace(state, light=light[:n].reshape(state.light.shape), light_dirty=dirty)
-    stats = dict(
-        updated=valid.sum(),
-        max_diff=torch.where(valid, diff, 0).max(),
-        queue_remaining=(dirty > 0).sum(),
-    )
-    return new_state, stats
+        new_state = dataclasses.replace(state, light=light[:n].reshape(state.light.shape), light_dirty=dirty)
+        stats = dict(
+            updated=valid.sum(),
+            max_diff=torch.where(valid, diff, 0).max(),
+            queue_remaining=(dirty > 0).sum(),
+        )
+        return new_state, stats
 
 
 def evaluate_light(state: SpaceState, batch_size: int = 256, max_rounds: int = 100000):
     """Relight to convergence (space.rs:1494 `evaluate_light`): the dense
     passes when more than DENSE_THRESHOLD of the volume is dirty, the
     queue rounds otherwise. Returns (state, cubes updated): a dense
-    relight counts every cube once per pass."""
+    relight counts every cube once per pass. Counts the queue's rounds
+    (`light.rounds`), the rows its batches launch (`light.rows_launched`)
+    and the cubes they relit (`light.rows_relit`) in `profiling`."""
     from .dense import evaluate_light_dense
 
-    if not state.light_enabled:
-        return state, 0
-    n_dirty = int((state.light_dirty > 0).sum())
-    if n_dirty > DENSE_THRESHOLD * state.light_dirty.numel():
-        state, passes = evaluate_light_dense(state)
-        return state, passes * state.light_dirty.numel()
-    total_updated = 0
-    for _ in range(max_rounds):
-        state, stats = light_update_round(state, batch_size=batch_size)
-        total_updated += int(stats["updated"])
-        if int(stats["queue_remaining"]) == 0:
-            break
-    return state, total_updated
+    with profiling.span("light.evaluate"):
+        if not state.light_enabled:
+            return state, 0
+        with profiling.wait("light.n_dirty"):
+            n_dirty = int((state.light_dirty > 0).sum())
+        if n_dirty > DENSE_THRESHOLD * state.light_dirty.numel():
+            state, passes = evaluate_light_dense(state)
+            return state, passes * state.light_dirty.numel()
+        rows = batch_shape(state.light_dirty.numel(), batch_size)[0]
+        total_updated = 0
+        for _ in range(max_rounds):
+            state, stats = light_update_round(state, batch_size=batch_size)
+            with profiling.wait("light.updated"):
+                updated = int(stats["updated"])
+            total_updated += updated
+            profiling.count("light.rounds")
+            profiling.count("light.rows_launched", rows)
+            profiling.count("light.rows_relit", updated)
+            with profiling.wait("light.queue_remaining"):
+                remaining = int(stats["queue_remaining"])
+            if remaining == 0:
+                break
+        return state, total_updated

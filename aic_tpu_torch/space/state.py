@@ -30,6 +30,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import profiling
+
 #: BlockTables field → dtype in the port.
 TABLE_DTYPES = {
     "resolution": torch.int32,
@@ -135,7 +137,8 @@ class SpaceState:
 
 def in_bounds_mask(state: SpaceState, idx: torch.Tensor) -> torch.Tensor:
     """Mask of index-space positions (..., 3) inside the contents array."""
-    size = torch.as_tensor(state.contents.shape, dtype=idx.dtype, device=idx.device)
+    with profiling.wait("space.in_bounds"):
+        size = torch.as_tensor(state.contents.shape, dtype=idx.dtype, device=idx.device)
     return ((idx >= 0) & (idx < size)).all(-1)
 
 
@@ -184,11 +187,17 @@ def scatter_set_cubes(state: SpaceState, idx: torch.Tensor, new_indices: torch.T
     contents[flat] = new_indices.to(device=dev, dtype=contents.dtype)
     contents = contents[:n].reshape(shape)
 
-    nb = (idx[:, None, :] + torch.as_tensor(FACE7_NORMALS, dtype=torch.int64, device=dev)).reshape(-1, 3)
+    with profiling.wait("space.mark_offsets"):
+        offsets = torch.as_tensor(FACE7_NORMALS, dtype=torch.int64, device=dev)
+    nb = (idx[:, None, :] + offsets).reshape(-1, 3)
     dirty = torch.cat([state.light_dirty.reshape(-1), state.light_dirty.new_zeros(1)])
-    dirty[torch.where(in_bounds_mask(state, nb), _flat_index(shape, nb), n)] = 255
+    marked = torch.where(in_bounds_mask(state, nb), _flat_index(shape, nb), n)
+    with profiling.wait("space.mark_dirty"):  # the 255 goes to the card as a blocking copy
+        dirty[marked] = 255
     dirty = dirty[:n].reshape(shape)
-    return dataclasses.replace(state, contents=contents, light_dirty=dirty, cells=_cells_for(state, contents))
+    with profiling.span("txn.cells"):
+        cells = _cells_for(state, contents)
+    return dataclasses.replace(state, contents=contents, light_dirty=dirty, cells=cells)
 
 
 def _cells_for(state: SpaceState, contents: torch.Tensor, tables: BlockTables | None = None) -> torch.Tensor:

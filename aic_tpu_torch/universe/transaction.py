@@ -15,6 +15,8 @@ from typing import Optional
 
 import numpy as np
 
+from .. import profiling
+
 
 class TransactionConflict(Exception):
     pass
@@ -178,11 +180,11 @@ class SpaceTransaction:
         from ..space.state import scatter_set_cubes
 
         dev = state.contents.device
-        return scatter_set_cubes(
-            state,
-            torch.as_tensor(np.array(positions, np.int64), device=dev),
-            torch.as_tensor(np.array(new_idx, np.int32), device=dev),
-        )
+        with profiling.wait("txn.positions"):
+            positions = torch.as_tensor(np.array(positions, np.int64), device=dev)
+        with profiling.wait("txn.blocks"):
+            new_idx = torch.as_tensor(np.array(new_idx, np.int32), device=dev)
+        return scatter_set_cubes(state, positions, new_idx)
 
     def execute(self, space, state=None):
         self.check(space)
@@ -226,10 +228,11 @@ class UniverseTransaction:
     def execute(self, universe) -> int:
         """Check everything, then commit everything (all-or-nothing at
         the check stage, like the reference's two-phase protocol)."""
-        self.check(universe)
-        edits = 0
-        for name, sp in self.inserts.items():
-            universe.insert_space(name, sp)
-        for name, txn in self.spaces.items():
-            edits += universe._commit(name, txn)
-        return edits
+        with profiling.span("txn.execute"):
+            self.check(universe)
+            edits = 0
+            for name, sp in self.inserts.items():
+                universe.insert_space(name, sp)
+            for name, txn in self.spaces.items():
+                edits += universe._commit(name, txn)
+            return edits

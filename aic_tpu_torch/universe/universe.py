@@ -461,6 +461,8 @@ class Universe:
         if paused:
             return info
         prof = self.profiler
+        # The phases' totals before this step, for the Telemetry record.
+        before = {k: v.total_s for k, v in prof.spans.items()}
 
         # Implicit GC of unreferenced anonymous members each step
         # (universe/tests.rs gc_implicit; gc.rs:55).
@@ -599,7 +601,8 @@ class Universe:
                 light_updates=info.light_updates,
                 light_queue=info.light_queue,
                 behaviors=info.behaviors_run,
-                phases={k: round(v.total_s * 1000, 3) for k, v in self.profiler.spans.items()},
+                phases={k: round((v.total_s - before.get(k, 0.0)) * 1000, 3)
+                        for k, v in self.profiler.spans.items()},
             )
         return info
 

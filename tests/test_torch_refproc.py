@@ -217,7 +217,7 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
     with open(tmp_path / "trace" / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any("cumsum" in e.get("name", "") for e in events)
-    assert os.listdir(tmp_path / "trace") == ["trace.json"]
+    assert sorted(os.listdir(tmp_path / "trace")) == ["idle_by_span.json", "trace.json"]
 
 
 def test_light_and_space_export_what_aic_tpu_exports():
