@@ -14,10 +14,16 @@ cubes. On the card it is one launch of K2's listed kernel
 (`csrc/relight.cu`, `relight_kernel.relight_listed_cuda`), which walks
 the chart rays of every batch row with the dense pass's step and reads
 the state's packed light: `aic_tpu` states that its dense pass gives per
-cube the results of `relight_batch` (dense.py:388-391). A batch with no
-valid row launches nothing. On the CPU it is the plain version, a
-straight port of `aic_tpu`'s masked walk over the chart steps
-(update.py:101-277). A CUDA tensor never takes the plain walk.
+cube the results of `relight_batch` (dense.py:388-391). On the CPU it is
+the plain version, a straight port of `aic_tpu`'s masked walk over the
+chart steps (update.py:101-277). A CUDA tensor never takes the plain
+walk.
+
+A queue round reads nothing back and copies nothing from the host: on
+the card it is a fixed sequence of launches. `evaluate_light` captures
+it once as a CUDA graph over static buffers (`RoundGraph`) and replays
+it, reading back only the round's two counts; on the CPU it runs the
+round eagerly, with the same one read-back a round.
 
 Selection is `aic_tpu`'s two-stage top-k (update.py:293-316). `lax.top_k`
 returns the lower index first among equal values, and `torch.topk` makes
@@ -38,7 +44,8 @@ import torch
 
 from .. import profiling
 from ..math import faces, lightpack
-from ..space.state import SpaceState, lookup_contents
+from ..space.state import SpaceState, in_bounds_mask, lookup_contents
+from . import relight_kernel
 from .chart import STEP_END, STEP_PAD, build_chart
 from .dense import device_pair_tables, finish
 from .relight_kernel import build_face_mask, relight_listed_cuda
@@ -66,6 +73,14 @@ def _chart_host(max_distance: int) -> dict:
 def _chart_device(max_distance: int, device: torch.device) -> dict:
     ch = _chart_host(max_distance)
     return {k: torch.as_tensor(v, device=device) if isinstance(v, np.ndarray) else v for k, v in ch.items()}
+
+
+@functools.lru_cache(maxsize=16)
+def _face_constants(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The six face normals i64[6,3] and each face's opposite i64[6] on
+    `device`, made once: a round copies nothing from the host."""
+    return (torch.as_tensor(faces.FACE_NORMALS[:6], dtype=torch.int64, device=device),
+            torch.as_tensor(faces.OPPOSITE[:6], dtype=torch.int64, device=device))
 
 
 def _gather_light_rgb(state: SpaceState, pos: torch.Tensor) -> torch.Tensor:
@@ -110,14 +125,11 @@ def _origins(state: SpaceState, cubes: torch.Tensor, cosines: torch.Tensor) -> O
     mean_alpha = t.face_colors[idx0, 6, 3].clamp(0.0, 1.0)
 
     # directions_to_seek_light (updater.rs:663).
-    with profiling.wait("light.origin_normals"):
-        normals = torch.as_tensor(faces.FACE_NORMALS[:6], dtype=cubes.dtype, device=cubes.device)
+    normals, opp = _face_constants(cubes.device)
     nidx, _ = lookup_contents(state, cubes[:, None, :] + normals[None])
     nidx = nidx.long()
     n_visible = t.visible[nidx]
     n_emissive = (t.light_emission[nidx] != 0).any(-1)
-    with profiling.wait("light.origin_opposite"):
-        opp = torch.as_tensor(faces.OPPOSITE[:6], dtype=torch.long, device=cubes.device)
     one = torch.ones_like(n_emissive, dtype=torch.float32)
     dir_weights = torch.where(
         origin_visible[:, None], one, torch.where(n_visible[:, opp] | n_emissive, one, 0.0 * one)
@@ -205,14 +217,17 @@ _FACE_MASKS: dict = {}
 def batch_face_mask(state: SpaceState) -> torch.Tensor:
     """K2's visibility mask of the state's contents and face rows, built
     on its device once per contents tensor."""
-    key = id(state.contents)
-    hit = _FACE_MASKS.get(key)
+    hit = _FACE_MASKS.get(id(state.contents))
     if hit is not None and hit[0]() is state.contents and hit[1]() is state.tables.light_face_rows:
         return hit[2]
-    mask = build_face_mask(state.contents, state.tables.light_face_rows)
+    return _keep_face_mask(state, build_face_mask(state.contents, state.tables.light_face_rows))
+
+
+def _keep_face_mask(state: SpaceState, mask: torch.Tensor) -> torch.Tensor:
+    """Make `mask` what `batch_face_mask` gives for the state's contents."""
     if len(_FACE_MASKS) >= 8:
         _FACE_MASKS.pop(next(iter(_FACE_MASKS)))
-    _FACE_MASKS[key] = (weakref.ref(state.contents), weakref.ref(state.tables.light_face_rows), mask)
+    _FACE_MASKS[id(state.contents)] = (weakref.ref(state.contents), weakref.ref(state.tables.light_face_rows), mask)
     return mask
 
 
@@ -236,8 +251,9 @@ def listed_inputs(state: SpaceState, cubes: torch.Tensor, valid: torch.Tensor):
 
 def relight_batch_cuda(state: SpaceState, cubes: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """`relight_batch` on the card: `relight_listed_batch`, except that a
-    batch whose every row is padding (an empty queue's) gives zeros and
-    launches nothing; finding that out is the round's one read-back."""
+    batch whose every row is padding gives zeros and launches nothing;
+    finding that out reads back from the card. The queue round calls
+    `relight_listed_batch` and reads nothing back."""
     with profiling.wait("light.any_valid"):
         any_valid = bool(valid.any())
     if not any_valid:
@@ -315,9 +331,12 @@ def light_update_round(state: SpaceState, batch_size: int = 256):
     relight them, scatter, clear them and re-enqueue the neighbours of
     cubes whose light changed by more than one step. Returns (state,
     stats), the stats as tensors on the state's device (updated,
-    max_diff, queue_remaining). On the card the one read-back is whether
-    the batch has a valid row (`relight_batch_cuda`); the host also waits
-    for each blocking copy of a host constant (the `wait` spans).
+    max_diff, queue_remaining). The round reads nothing back and copies
+    nothing from the host: on the card its relight is one listed launch
+    over the whole batch, padding rows included, so that the round can
+    be captured as a CUDA graph (`RoundGraph`). A caller that knows the
+    queue is empty skips the round (`queue_known_empty`): an all-padding
+    batch changes nothing.
 
     Writes go through a copy of the volume with one spare element past
     its end, which takes the rows that must write nothing (padding rows,
@@ -329,7 +348,10 @@ def light_update_round(state: SpaceState, batch_size: int = 256):
         with profiling.span("light.select"):
             pos, valid, flat = select_batch(state.light_dirty, batch_size)
         with profiling.span("light.relight"):
-            new_light = relight_batch(state, pos, valid)
+            if state.contents.device.type == "cuda":
+                new_light = relight_listed_batch(state, pos, valid)
+            else:
+                new_light = relight_batch(state, pos, valid)
         with profiling.span("light.scatter"):
             old_light = state.light.reshape(-1, 4)[flat]
             diff = lightpack.difference_priority(old_light, new_light)
@@ -338,15 +360,10 @@ def light_update_round(state: SpaceState, batch_size: int = 256):
             light = torch.cat([state.light.reshape(-1, 4), state.light.new_zeros((1, 4))])
             light[target] = new_light
             dirty = torch.cat([state.light_dirty.reshape(-1), state.light_dirty.new_zeros(1)]).to(torch.int32)
-            with profiling.wait("light.clear_marks"):  # the 0 goes to the card as a blocking copy
-                dirty[target] = 0
-            with profiling.wait("light.neighbour_normals"):
-                normals = torch.as_tensor(faces.FACE_NORMALS[:6], dtype=torch.int64, device=pos.device)
-            npos = pos[:, None, :] + normals[None]
-            with profiling.wait("light.volume_size"):
-                size = torch.as_tensor(shape, dtype=torch.int64, device=pos.device)
-            inside = ((npos >= 0) & (npos < size)).all(-1)
-            nflat = torch.where(inside, (npos[..., 0] * shape[1] + npos[..., 1]) * shape[2] + npos[..., 2], n)
+            dirty.index_fill_(0, target, 0)
+            npos = pos[:, None, :] + _face_constants(pos.device)[0][None]
+            nflat = torch.where(in_bounds_mask(state, npos),
+                                (npos[..., 0] * shape[1] + npos[..., 1]) * shape[2] + npos[..., 2], n)
             nprio = torch.where(valid & (diff > 1), torch.clamp(diff, max=255), 0)
             dirty.scatter_reduce_(0, nflat.reshape(-1), nprio[:, None].expand(-1, 6).reshape(-1), "amax")
             dirty = dirty[:n].to(torch.uint8).reshape(shape)
@@ -360,13 +377,175 @@ def light_update_round(state: SpaceState, batch_size: int = 256):
         return new_state, stats
 
 
+def _table_tensors(tables) -> list:
+    return [getattr(tables, f.name) for f in dataclasses.fields(tables)]
+
+
+@functools.lru_cache(maxsize=8)
+def _capture_stream(device: torch.device):
+    """The side stream on which `device`'s round graphs are captured."""
+    return torch.cuda.Stream(device)
+
+
+class RoundGraph:
+    """`light_update_round` on the card, captured once as a CUDA graph over
+    static buffers that hold a state's contents, packed light, queue and
+    K2's face mask. `load` copies a state into them; each `replay` runs
+    one round on them, writes its light and queue back into them and
+    (updated, queue remaining) into `counts`; `result` gives the state
+    with copies of the buffers' light and queue, so that no state aliases
+    a buffer that a later call overwrites.
+
+    A graph serves the states of its device, volume shape and batch size
+    that have the palette tables and pair tables it was captured with
+    (`fits`), which it follows by weakrefs: an edit changes only what
+    `load` copies. It holds the listed kernel's tickets and decode table,
+    which it reads at every replay; the tickets are those of the capture
+    stream, 0 before and after each replay as before and after a launch.
+    The face mask buffer is `batch_face_mask`'s for the static contents,
+    so the captured round reads it as an eager round reads its mask."""
+
+    def __init__(self, state: SpaceState, batch_size: int):
+        dev = state.contents.device
+        buffer = functools.partial(torch.empty_like, memory_format=torch.contiguous_format)
+        self.contents = buffer(state.contents)
+        self.light = buffer(state.light)
+        self.dirty = buffer(state.light_dirty)
+        self.face_mask = buffer(batch_face_mask(state))
+        self.counts = torch.zeros(2, dtype=torch.int64, device=dev)
+        self._tables = [weakref.ref(t) for t in _table_tensors(state.tables)]
+        self._pairs = weakref.ref(device_pair_tables(state))
+        self.load(state)
+        static = dataclasses.replace(state, contents=self.contents, light=self.light, light_dirty=self.dirty)
+        _keep_face_mask(static, self.face_mask)
+        rows = batch_shape(state.light_dirty.numel(), batch_size)[0]
+        stream = _capture_stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            # What a round makes on first use (K2's library, its decode
+            # table, the stream's tickets, the constants) is made outside
+            # the capture, by one round whose result is dropped.
+            light_update_round(static, batch_size)
+            self._held = (relight_kernel._tickets(dev, rows), relight_kernel.decode_table(dev))
+        before = relight_kernel.LAUNCHES_LISTED
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream):
+            new, stats = light_update_round(static, batch_size)
+            self.light.copy_(new.light)
+            self.dirty.copy_(new.light_dirty)
+            torch.stack((stats["updated"], stats["queue_remaining"]), out=self.counts)
+        # A capture launches nothing: each replay launches what it recorded.
+        self.launches = relight_kernel.LAUNCHES_LISTED - before
+        relight_kernel.LAUNCHES_LISTED = before
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        if self.launches != 1:
+            raise RuntimeError(f"a captured queue round holds {self.launches} listed launches, not 1")
+
+    def fits(self, state: SpaceState) -> bool:
+        return self._pairs() is device_pair_tables(state) and all(
+            ref() is t for ref, t in zip(self._tables, _table_tensors(state.tables)))
+
+    def live(self) -> bool:
+        """Whether its tables and pair tables still exist: a graph whose
+        tables died fits no state again."""
+        return self._pairs() is not None and all(ref() is not None for ref in self._tables)
+
+    def load(self, state: SpaceState) -> None:
+        self.contents.copy_(state.contents)
+        self.light.copy_(state.light)
+        self.dirty.copy_(state.light_dirty)
+        self.face_mask.copy_(batch_face_mask(state))
+
+    def replay(self) -> torch.Tensor:
+        """One round on the buffers; returns `counts`, not read back."""
+        self.graph.replay()
+        relight_kernel.LAUNCHES_LISTED += self.launches
+        profiling.count("light.graph_rounds")
+        return self.counts
+
+    def result(self, state: SpaceState) -> SpaceState:
+        return dataclasses.replace(state, light=self.light.clone(), light_dirty=self.dirty.clone())
+
+
+#: (device, volume shape, batch size) → its `RoundGraph`, the most recently
+#: used last.
+_ROUND_GRAPHS: dict = {}
+
+
+def round_graph(state: SpaceState, batch_size: int) -> RoundGraph:
+    """The `RoundGraph` for a state on the card: captured on first use, and
+    again for new palette tables (a palette that grew) or pair tables (a
+    new sky), counted in `light.graph_captures`."""
+    for dead in [k for k, g in _ROUND_GRAPHS.items() if not g.live()]:
+        del _ROUND_GRAPHS[dead]
+    key = (state.contents.device, tuple(state.contents.shape), batch_size)
+    graph = _ROUND_GRAPHS.pop(key, None)
+    if graph is None or not graph.fits(state):
+        graph = None  # its memory goes back before the new capture
+        if len(_ROUND_GRAPHS) >= 4:
+            _ROUND_GRAPHS.pop(next(iter(_ROUND_GRAPHS)))
+        graph = RoundGraph(state, batch_size)
+        profiling.count("light.graph_captures")
+    _ROUND_GRAPHS[key] = graph
+    return graph
+
+
+#: id(light_dirty) → (weakref to it, how many cubes it marks: an int, or
+#: a pinned host tensor and the event after which the card has written
+#: the count into it).
+_QUEUE_COUNTS: dict = {}
+
+
+def note_queue(state: SpaceState, remaining) -> None:
+    """Remember how many cubes the state's queue marks, for
+    `queue_known_empty`: `remaining` is an int, or a round's count as a
+    tensor, which on the card is copied to the host without waiting. A
+    state's tensors are never written in place, so the count holds for
+    as long as its `light_dirty` lives."""
+    if isinstance(remaining, torch.Tensor):
+        if remaining.device.type == "cuda":
+            host = torch.empty((), dtype=remaining.dtype, pin_memory=True)
+            host.copy_(remaining, non_blocking=True)
+            written = torch.cuda.Event()
+            written.record(torch.cuda.current_stream(remaining.device))
+            remaining = (host, written)
+        else:
+            remaining = int(remaining)
+    for dead in [k for k, v in _QUEUE_COUNTS.items() if v[0]() is None]:
+        del _QUEUE_COUNTS[dead]
+    _QUEUE_COUNTS[id(state.light_dirty)] = (weakref.ref(state.light_dirty), remaining)
+
+
+def queue_known_empty(state: SpaceState) -> bool:
+    """Whether the state's queue is known to mark no cube, so that a round
+    would select only padding and change nothing: its `light_dirty` is
+    one that `note_queue` counted 0. Never waits for the card: a count
+    still on its way reads as not known."""
+    hit = _QUEUE_COUNTS.get(id(state.light_dirty))
+    if hit is None or hit[0]() is not state.light_dirty:
+        return False
+    count = hit[1]
+    if isinstance(count, tuple):
+        host, written = count
+        if not written.query():
+            return False
+        count = int(host)
+        _QUEUE_COUNTS[id(state.light_dirty)] = (hit[0], count)
+    return count == 0
+
+
 def evaluate_light(state: SpaceState, batch_size: int = 256, max_rounds: int = 100000):
     """Relight to convergence (space.rs:1494 `evaluate_light`): the dense
     passes when more than DENSE_THRESHOLD of the volume is dirty, the
     queue rounds otherwise. Returns (state, cubes updated): a dense
-    relight counts every cube once per pass. Counts the queue's rounds
+    relight counts every cube once per pass. On the card the rounds are
+    replays of the state's `RoundGraph` (counted in `light.graph_rounds`),
+    on the CPU eager rounds; either way the host reads back one pair of
+    counts a round, (updated, queue remaining), and stops at an empty
+    queue or after `max_rounds`. Counts the queue's rounds
     (`light.rounds`), the rows its batches launch (`light.rows_launched`)
-    and the cubes they relit (`light.rows_relit`) in `profiling`."""
+    and the cubes they relit (`light.rows_relit`) in `profiling`, and
+    notes the queue it leaves (`note_queue`)."""
     from .dense import evaluate_light_dense
 
     with profiling.span("light.evaluate"):
@@ -376,19 +555,29 @@ def evaluate_light(state: SpaceState, batch_size: int = 256, max_rounds: int = 1
             n_dirty = int((state.light_dirty > 0).sum())
         if n_dirty > DENSE_THRESHOLD * state.light_dirty.numel():
             state, passes = evaluate_light_dense(state)
+            note_queue(state, 0)
             return state, passes * state.light_dirty.numel()
         rows = batch_shape(state.light_dirty.numel(), batch_size)[0]
-        total_updated = 0
+        graph = None
+        if state.contents.device.type == "cuda":
+            graph = round_graph(state, batch_size)
+            graph.load(state)
+        total_updated, remaining = 0, n_dirty
         for _ in range(max_rounds):
-            state, stats = light_update_round(state, batch_size=batch_size)
-            with profiling.wait("light.updated"):
-                updated = int(stats["updated"])
+            if graph is None:
+                state, stats = light_update_round(state, batch_size=batch_size)
+                counts = torch.stack((stats["updated"], stats["queue_remaining"]))
+            else:
+                counts = graph.replay()
+            with profiling.wait("light.counts"):
+                updated, remaining = counts.tolist()
             total_updated += updated
             profiling.count("light.rounds")
             profiling.count("light.rows_launched", rows)
             profiling.count("light.rows_relit", updated)
-            with profiling.wait("light.queue_remaining"):
-                remaining = int(stats["queue_remaining"])
             if remaining == 0:
                 break
+        if graph is not None:
+            state = graph.result(state)
+        note_queue(state, remaining)
         return state, total_updated

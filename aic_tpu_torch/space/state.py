@@ -136,10 +136,10 @@ class SpaceState:
 
 
 def in_bounds_mask(state: SpaceState, idx: torch.Tensor) -> torch.Tensor:
-    """Mask of index-space positions (..., 3) inside the contents array."""
-    with profiling.wait("space.in_bounds"):
-        size = torch.as_tensor(state.contents.shape, dtype=idx.dtype, device=idx.device)
-    return ((idx >= 0) & (idx < size)).all(-1)
+    """Mask of index-space positions (..., 3) inside the contents array,
+    compared with the shape's Python ints: nothing goes to the card."""
+    X, Y, Z = state.contents.shape
+    return (idx >= 0).all(-1) & (idx[..., 0] < X) & (idx[..., 1] < Y) & (idx[..., 2] < Z)
 
 
 def _flat_index(shape, idx: torch.Tensor) -> torch.Tensor:

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..light.dense import _shift
-from ..light.update import light_update_round
+from ..light.update import light_update_round, note_queue, queue_known_empty
 from ..math import faces
 from .op import Become, DestroyTo
 
@@ -85,7 +85,8 @@ def device_tick(state, plan: TickPlan, tick: int, light_rounds: int, light_batch
     """One space tick on the state's device. Returns (state, stats): the
     cubes the tick actions changed (`edits`), and the light rounds' cubes
     `updated`, `max_diff` of the last round and `queue_remaining`, each a
-    tensor on the device."""
+    tensor on the device. The rounds stop where the queue is known to be
+    empty (`queue_known_empty`, read without waiting for the card)."""
     idx = state.contents
     firing = [(i, tgt) for i, tgt, per in plan.actions if tick % per == 0]
     edits = torch.zeros((), dtype=torch.int64, device=idx.device)
@@ -115,7 +116,10 @@ def device_tick(state, plan: TickPlan, tick: int, light_rounds: int, light_batch
     )
     total_updated = stats["updated"]
     for _ in range(light_rounds):
+        if queue_known_empty(state):
+            break
         state, stats = light_update_round(state, batch_size=light_batch)
+        note_queue(state, stats["queue_remaining"])
         total_updated = total_updated + stats["updated"]
     stats["updated"] = total_updated
     stats["edits"] = edits

@@ -32,7 +32,7 @@ from typing import Optional
 import numpy as np
 
 from ..io.whence import NoWhence
-from ..light.update import light_update_round
+from ..light.update import light_update_round, note_queue, queue_known_empty
 from ..physics import Body, step_bodies
 from ..profiling import Profiler
 from ..space import Space
@@ -583,9 +583,13 @@ class Universe:
                 if st is None or not st.light_enabled:
                     continue
                 for _ in range(self.light_rounds_per_tick):
+                    if queue_known_empty(st):  # a round would change nothing
+                        info.light_queue = 0
+                        break
                     st, stats = light_update_round(st, batch_size=self.light_batch_size)
                     info.light_updates += int(stats["updated"])
                     info.light_queue = int(stats["queue_remaining"])
+                    note_queue(st, info.light_queue)
                 self.states[name] = st
 
         info.wall_time_s = _time.perf_counter() - t0

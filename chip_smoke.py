@@ -1201,7 +1201,8 @@ def step_world(name, camera, dev, reset_counts, read_counts) -> dict:
     ticks with synchronized profiler spans for the phases, one cycle of
     ticks under torch.profiler (the card's busy share), STEP_TICKS[name]
     ticks with each listed K2 launch timed (`listed_launches_over`), a
-    round's stages and the round's read-back (`round_readback`), and a
+    round's stages, its eager rounds against graph replays and the cost
+    of a round on an empty queue (`round_replay`), and a
     commit that grows the palette (a resnapshot) timed apart."""
     import dataclasses
 
@@ -1264,7 +1265,7 @@ def step_world(name, camera, dev, reset_counts, read_counts) -> dict:
     profiled = profiled_frame(lambda: [u.step() for _ in range(CYCLE_PERIOD)])
     tick_launches = listed_launches_over(lambda: [u.step() for _ in range(STEP_TICKS[name])])
     rounds = round_stages(u.states["world"], u.light_batch_size)
-    readback = round_readback(u.states["world"], u.light_batch_size)
+    replay = round_replay(u.states["world"], u.light_batch_size)
 
     grow = U.UniverseTransaction(spaces={"world": U.SpaceTransaction.set_cube(
         placed[0], new=block.from_color((0.3, 0.6, 0.9, 1.0), "grown"))})
@@ -1286,7 +1287,7 @@ def step_world(name, camera, dev, reset_counts, read_counts) -> dict:
           f"mean {float(np.mean(walked)) if walked else 0:.2f} of {u.light_batch_size}, max {max(walked, default=0)}, "
           f"{sum(w == 0 for w in walked)} of {len(walked)} launches walked none; "
           f"phases (ms a tick, synchronized spans, 12 ticks) "
-          f"{spans}; a light round's stages (ms, median of 5, synchronized) {rounds}; {readback}; "
+          f"{spans}; a light round's stages (ms, median of 5, synchronized) {rounds}; {replay}; "
           f"{CYCLE_PERIOD} ticks under torch.profiler: {profiled}; "
           f"frame {camera.viewport.width}x{camera.viewport.height} {frame_ms:.1f} ms, equal to a fresh snapshot's ({int(far.sum())} pixels "
           f"over 1); host contents = device contents; palette-growing commit (resnapshot) {grow_ms:.1f} ms; "
@@ -1300,8 +1301,8 @@ def step_world(name, camera, dev, reset_counts, read_counts) -> dict:
 
 
 class walked_rows:
-    """Within the block, every batch `relight_batch_cuda` makes inputs
-    for is kept as (walked rows, (state, cubes, valid)), the count a
+    """Within the block, every batch a queue round makes inputs for is
+    kept as (walked rows, (state, cubes, valid)), the count a
     tensor on the card, so the ticks read nothing back."""
 
     def __enter__(self):
@@ -1309,8 +1310,8 @@ class walked_rows:
 
         self.update, self.real, self.batches = update, update.listed_inputs, []
 
-        def counting(state, cubes, valid):
-            args, org = self.real(state, cubes, valid)
+        def counting(state, cubes, valid, *rest):
+            args, org = self.real(state, cubes, valid, *rest)
             self.batches.append((args[6].any(-1).sum(), (state, cubes, valid)))
             return args, org
 
@@ -1370,61 +1371,70 @@ def listed_launches_over(fn) -> str:
 
 def round_stages(state, batch_size) -> dict:
     """One queue round of the stepped state, a stage at a time (host clock,
-    synchronized, median of 5): the selection, `relight_batch` (the
-    origins, the K2 launch, `finish`), and the whole round, whose rest is
-    the scatters and re-enqueue."""
+    synchronized, median of 5): the selection, the relight the round makes
+    (`relight_listed_batch`: the origins, the K2 launch, `finish`), and the
+    whole round, whose rest is the scatters and re-enqueue."""
     from aic_tpu_torch.light import update
 
     runs: dict = {}
     for _ in range(5):
         st: dict = {}
         pos, valid, _ = stage(st, "select", lambda: update.select_batch(state.light_dirty, batch_size))
-        stage(st, "relight_batch", lambda: update.relight_batch(state, pos, valid))
+        stage(st, "relight", lambda: update.relight_listed_batch(state, pos, valid))
         stage(st, "round", lambda: update.light_update_round(state, batch_size))
-        st["scatter_and_rest"] = st["round"] - st["select"] - st["relight_batch"]
+        st["scatter_and_rest"] = st["round"] - st["select"] - st["relight"]
         for k, v in st.items():
             runs.setdefault(k, []).append(v)
     return {k: round(float(np.median(v)), 3) for k, v in runs.items()}
 
 
-def round_readback(state, batch_size, rounds=8, reps=4) -> str:
-    """`rounds` queue rounds in a row from the stepped state, as a device
-    tick runs them (host clock, synchronized before the first and after
-    the last), with `relight_batch_cuda`'s read-back of whether a batch
-    has a valid row and without it (`relight_listed_batch` on every
-    batch: an all-padding batch launches), alternated with, without,
-    without, with, `reps` times: the median ms a round of each, and the
-    listed launches of a run of each."""
+def round_replay(state, batch_size, rounds=8, reps=4) -> str:
+    """`rounds` queue rounds in a row from the stepped state (host clock,
+    synchronized before the first and after the last), eager
+    (`light_update_round`, as a device tick runs them) and as replays of
+    the state's `RoundGraph` (as `evaluate_light` runs them, with its
+    copies in and out), and eager rounds on the state with its queue
+    emptied (all padding: what the step's callers skip where
+    `queue_known_empty`), alternated eager, graph, padding, padding,
+    graph, eager, `reps` times: the median ms a round of each. The eager
+    rounds and the replays end bit-equal."""
+    import dataclasses
+
     import torch
-    from aic_tpu_torch.light import relight_kernel as rk
     from aic_tpu_torch.light import update
 
-    real = update.relight_batch_cuda
-    ms: dict = {"with": [], "without": []}
-    launched: dict = {}
+    graph = update.round_graph(state, batch_size)
+    empty = dataclasses.replace(state, light_dirty=torch.zeros_like(state.light_dirty))
+    ms: dict = {"eager": [], "graph": [], "padding": []}
 
     def run(mode):
-        update.relight_batch_cuda = real if mode == "with" else update.relight_listed_batch
-        st, before = state, rk.LAUNCHES_LISTED
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(rounds):
-            st, _stats = update.light_update_round(st, batch_size)
+        if mode != "graph":
+            st = state if mode == "eager" else empty
+            for _ in range(rounds):
+                st, _stats = update.light_update_round(st, batch_size)
+        else:
+            graph.load(state)
+            for _ in range(rounds):
+                graph.replay()
+            st = graph.result(state)
         torch.cuda.synchronize()
         ms[mode].append((time.perf_counter() - t0) * 1e3 / rounds)
-        launched[mode] = rk.LAUNCHES_LISTED - before
+        return st
 
-    try:
-        run("with")
-        ms["with"].clear()
-        for _ in range(reps):
-            for mode in ("with", "without", "without", "with"):
-                run(mode)
-    finally:
-        update.relight_batch_cuda = real
-    return (f"{rounds} rounds in a row, ms a round (median of {2 * reps}, alternated): with the valid-row "
-            f"read-back {float(np.median(ms['with'])):.4f} ({launched['with']} listed launches), without "
-            f"{float(np.median(ms['without'])):.4f} ({launched['without']} listed launches)")
+    a, b = run("eager"), run("graph")
+    if not (torch.equal(a.light, b.light) and torch.equal(a.light_dirty, b.light_dirty)):
+        fail(f"{rounds} queue rounds: the graph's replays differ from the eager rounds")
+    run("padding")
+    for v in ms.values():
+        v.clear()
+    for _ in range(reps):
+        for mode in ("eager", "graph", "padding", "padding", "graph", "eager"):
+            run(mode)
+    return (f"{rounds} rounds in a row, ms a round (median of {2 * reps}, alternated): eager "
+            f"{float(np.median(ms['eager'])):.4f}, graph replays {float(np.median(ms['graph'])):.4f}, bit-equal; "
+            f"eager on an empty queue (all padding) {float(np.median(ms['padding'])):.4f}")
 
 
 def batch_cases(state, seed=0) -> dict:

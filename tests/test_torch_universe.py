@@ -131,6 +131,42 @@ def test_host_path_ticks_match_aic_tpu():
         _assert_same(uj, ut, f"tick {i}")
 
 
+@pytest.mark.parametrize("path", ["device", "host"])
+def test_rounds_stop_where_the_queue_is_known_empty(path, monkeypatch):
+    """The device tick and the host path run no light round on a queue
+    known to be empty (`queue_known_empty`: `evaluate_light` or the round
+    that emptied it counted 0), and leave the states that a round on
+    every tick leaves, bit for bit."""
+    from aic_tpu_torch.light import update
+    from aic_tpu_torch.universe import device_step
+    from aic_tpu_torch.universe import universe as tuniverse
+
+    def run(known_empty):
+        u = _universes(period=16, behavior=False)[1]
+        if path == "host":
+            u._tick_plan = lambda name: None
+        u.states["world"], _ = update.evaluate_light(u.states["world"])
+        rounds = []
+
+        def counted(st, batch_size):
+            rounds.append(1)
+            return update.light_update_round(st, batch_size=batch_size)
+
+        monkeypatch.setattr(device_step, "light_update_round", counted)
+        monkeypatch.setattr(tuniverse, "light_update_round", counted)
+        monkeypatch.setattr(device_step, "queue_known_empty", known_empty)
+        monkeypatch.setattr(tuniverse, "queue_known_empty", known_empty)
+        updates = [u.step().light_updates for _ in range(20)]
+        return u.states["world"], updates, len(rounds)
+
+    skipped, updates, n = run(update.queue_known_empty)
+    every, updates_every, n_every = run(lambda state: False)
+    assert n_every == 20 and 0 < n < n_every
+    assert updates == updates_every
+    for name in ("contents", "light", "light_dirty", "cells"):
+        assert torch.equal(getattr(skipped, name), getattr(every, name)), name
+
+
 class TestDeviceHostEquivalence:
     def _step_both(self, steps=4, period=1):
         ud = _universes(period, behavior=False)[1]

@@ -273,3 +273,22 @@ def test_batch_tables_follow_the_contents():
     assert tdense.build_relight_ctx(edited).pairs is pairs
     args, _org = tupdate.listed_inputs(edited, torch.as_tensor([[5, 5, 5], [1, 1, 1]]), torch.as_tensor([True, True]))
     assert args[3] is mask2 and args[4] is pairs
+
+
+def test_a_queue_count_holds_for_its_own_queue_tensor():
+    """`note_queue` counts one `light_dirty` tensor: a state that shares it
+    shares the count, a state with another one (an edit's, a copy) is not
+    known, and only a count of 0 makes the queue known to be empty.
+    `evaluate_light` notes the queue it leaves."""
+    st = to_port(_seeded(SCENES["mixed10"]()))
+    assert not tupdate.queue_known_empty(st)
+    tupdate.note_queue(st, torch.tensor(3))
+    assert not tupdate.queue_known_empty(st)
+    tupdate.note_queue(st, 0)
+    assert tupdate.queue_known_empty(st)
+    assert tupdate.queue_known_empty(dataclasses.replace(st, light=st.light.clone()))
+    assert not tupdate.queue_known_empty(dataclasses.replace(st, light_dirty=st.light_dirty.clone()))
+    edited = tstate.scatter_set_cubes(st, torch.as_tensor([[5, 5, 5]]), torch.as_tensor([2]))
+    assert not tupdate.queue_known_empty(edited)
+    lit, _ = tupdate.evaluate_light(edited)
+    assert tupdate.queue_known_empty(lit) and not lit.light_dirty.any()
