@@ -33,7 +33,7 @@ from test_parallel import _demo_scene
 from test_torch_state import fresh_pallas_caches, to_port  # noqa: F401 (autouse)
 from test_torch_tracer import LIGHT_ATOL
 from test_torch_trace import torch_options
-from torch_rank_workers import fail_on_rank_1, parallel_worker
+from torch_rank_workers import RANKS_TIMEOUT, fail_on_rank_1, parallel_worker
 
 RANKS = 4
 
@@ -57,7 +57,7 @@ def runs():
     state = to_port(jstate)
     opts = torch_options(jopts)
     cams = [port_camera(opts, h) for h in (32, 40)]
-    (port, *rest) = spawn(parallel_worker, RANKS, "cpu", "gloo", args=(state, cams, state))
+    (port, *rest) = spawn(parallel_worker, RANKS, "cpu", "gloo", args=(state, cams, state), timeout=RANKS_TIMEOUT)
     assert rest == [None] * (RANKS - 1)
     return {"jframe": jframe, "jlight": jlight, "state": state, "cams": cams}, port
 
@@ -123,7 +123,7 @@ def test_dryrun_multichip_completes():
 
 def test_spawn_reports_a_failing_rank():
     with pytest.raises(RuntimeError, match="rank 1 of 2 failed"):
-        spawn(fail_on_rank_1, 2, "cpu", "gloo")
+        spawn(fail_on_rank_1, 2, "cpu", "gloo", timeout=RANKS_TIMEOUT)
 
 
 def test_one_process_mesh_collectives():

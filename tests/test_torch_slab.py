@@ -36,7 +36,7 @@ from aic_tpu_torch.raytrace import GraphicsOptions as TOptions
 from aic_tpu_torch.raytrace.tracer import trace_rays
 from test_slab import CAMS, _ray_fan
 from test_torch_state import PKGS, fresh_pallas_caches, to_port  # noqa: F401 (autouse)
-from torch_rank_workers import slab_worker
+from torch_rank_workers import RANKS_TIMEOUT, slab_worker
 
 RANKS = 4
 MDS = (5, 9)  # pad 6 < slab 8: one hop; pad 10 > slab 8: two hops
@@ -131,7 +131,7 @@ def runs():
     jax_out["trace"] = (np.asarray(jl), np.asarray(jt))
     narrow = PKGS["torch"].Space(PKGS["torch"].GridAab.from_lower_size((0, 0, 0), (30, 4, 4))).snapshot(device="cpu")
     (port, *rest) = spawn(slab_worker, RANKS, "cpu", "gloo",
-                          args=(worlds, rays(), [TOptions(**k) for k in OPTIONS], narrow))
+                          args=(worlds, rays(), [TOptions(**k) for k in OPTIONS], narrow), timeout=RANKS_TIMEOUT)
     assert rest == [None] * (RANKS - 1)
     return jax_out, port, worlds
 

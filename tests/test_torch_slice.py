@@ -76,7 +76,8 @@ def test_frame_matches(slice_run, light_from):
     else:
         tst = r["torch_lit"]
         jst = dataclasses.replace(r["jax_lit"], light=jnp.asarray(tst.light.numpy()))
-    want_l, want_t = jax_render_hdr(jst, r["jcam"])
+    # With its stats, as `jax_render` below traces it: one compile for both.
+    want_l, want_t, _ = jax_render_hdr(jst, r["jcam"], with_stats=True)
     before = trace_kernel.LAUNCHES
     got_l, got_t, stats = render_hdr(tst, r["tcam"], with_stats=True)
     assert trace_kernel.LAUNCHES == before  # CPU tensors: plain version

@@ -13,6 +13,11 @@ import sys
 
 import torch
 
+#: Seconds a test's world of ranks may run before `spawn` stops it and
+#: raises: several times the slowest world's time under the whole suite,
+#: so that a hung rank fails its test instead of holding the run.
+RANKS_TIMEOUT = 300.0
+
 
 def _jax_free() -> bool:
     return "jax" not in sys.modules and "aic_tpu" not in sys.modules
